@@ -1,19 +1,19 @@
-"""spmv_tpu — a TPU-native distributed sparse linear-algebra framework.
+"""spmv_tpu — a distributed sparse linear-algebra framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of LIBSPMV
+A from-scratch JAX/XLA rebuild of the capabilities of LIBSPMV
 (Excalibur-SLE/spmv, surveyed in SURVEY.md): distributed sparse matrix-vector
 multiplication over row-block partitions, a compiled halo-exchange plan
 (the L2GMap equivalent — see ``spmv_tpu.parallel.comm_plan``), communication/
 compute overlap, a symmetric lower-triangle storage optimization, a
 Conjugate-Gradient solver, and PETSc binary I/O.
 
-Layer map (TPU-native analogue of reference layers L0-L7, SURVEY.md section 1):
+Layer map (JAX analogue of reference layers L0-L7, SURVEY.md section 1):
 
 ====================  =======================================================
-reference (C++/MPI)    spmv_tpu (JAX/XLA/Pallas)
+reference (C++/MPI)    spmv_tpu (JAX/XLA)
 ====================  =======================================================
-DeviceExecutor (L0)    JAX device placement + ``interpret`` flag on kernels
-csr/coo kernels (L1)   ``spmv_tpu.ops`` Pallas/XLA kernels on ELL/DIA/WELL
+DeviceExecutor (L0)    JAX device placement (XLA compiles for the device)
+csr/coo kernels (L1)   ``spmv_tpu.ops`` XLA applies on ELL/DIA/WELL
 CSR/COOMatrix (L2)     ``spmv_tpu.formats`` device formats (host CSR import)
 L2GMap (L3)            ``spmv_tpu.parallel.comm_plan.CommPlan``
 Matrix (L4)            ``spmv_tpu.parallel.dist_matrix.DistMatrix``
@@ -42,23 +42,23 @@ from spmv_tpu.formats.well import (
 )
 from spmv_tpu.ops.spmv_ell import spmv_ell, spmv_ell_transpose
 from spmv_tpu.ds import ds_from_f64, ds_to_f64
-from spmv_tpu.ops.spmv_dia_ds_pallas import (
+from spmv_tpu.ops.spmv_dia_ds import (
     DiaDsMatrix,
     csr_to_dia_ds,
-    dia_ds_pallas_supported,
+    spmm_dia_ds_2d,
     spmv_dia_ds,
-    spmv_dia_ds_pallas_2d,
+    spmv_dia_ds_2d,
 )
-from spmv_tpu.ops.spmv_well_pallas import (
+from spmv_tpu.ops.spmv_well import (
     spmv_well_sym,
     spmv_well_sym_2d,
     WellDsMatrix,
     csr_to_well_ds,
+    spmm_well_2d,
     spmv_well,
+    spmv_well_2d,
     spmv_well_ds,
-    spmv_well_ds_pallas_2d,
-    spmv_well_pallas,
-    spmv_well_pallas_2d,
+    spmv_well_ds_2d,
     well_to_2d,
 )
 from spmv_tpu.reorder import (
@@ -67,12 +67,12 @@ from spmv_tpu.reorder import (
     rcm_reorder,
     reverse_cuthill_mckee,
 )
-from spmv_tpu.ops.spmv_dia import spmv_dia
-from spmv_tpu.ops.spmv_dia_pallas import (
-    dia_pallas_supported,
+from spmv_tpu.ops.spmv_dia import (
     dia_to_2d,
-    spmv_dia_pallas,
-    spmv_dia_pallas_2d,
+    spmm_dia,
+    spmm_dia_2d,
+    spmv_dia,
+    spmv_dia_2d,
 )
 from spmv_tpu.solvers.bicgstab import BiCGStabResult, bicgstab
 from spmv_tpu.solvers.gmres import GMRESResult, gmres
@@ -86,7 +86,6 @@ from spmv_tpu.solvers.newton_basis import (
 from spmv_tpu.solvers.lsqr import LSQRResult, lsqr
 from spmv_tpu.solvers.minres import MINRESResult, minres
 from spmv_tpu.solvers.lobpcg import LOBPCGResult, lane_block_ops, lobpcg
-from spmv_tpu.ops.spmm_dia_pallas import spmm_dia, spmm_dia_supported
 from spmv_tpu.solvers.block_cg import (
     BlockCGResult,
     block_cg,
@@ -189,10 +188,8 @@ __all__ = [
     "spmv_ell",
     "spmv_ell_transpose",
     "spmv_dia",
-    "spmv_dia_pallas",
-    "spmv_dia_pallas_2d",
+    "spmv_dia_2d",
     "dia_to_2d",
-    "dia_pallas_supported",
     "cg",
     "cg_pipelined",
     "cg_residual_history",
@@ -244,7 +241,7 @@ __all__ = [
     "condition_interval",
     "lanczos_extreme_with_bounds",
     "spmm_dia",
-    "spmm_dia_supported",
+    "spmm_dia_2d",
     "block_cg",
     "block_cg_dia",
     "block_cg_refined",
@@ -285,18 +282,18 @@ __all__ = [
     "well_occupancy",
     "DiaDsMatrix",
     "csr_to_dia_ds",
-    "dia_ds_pallas_supported",
     "spmv_dia_ds",
-    "spmv_dia_ds_pallas_2d",
+    "spmv_dia_ds_2d",
+    "spmm_dia_ds_2d",
     "ds_from_f64",
     "ds_to_f64",
     "spmv_well",
     "WellDsMatrix",
     "csr_to_well_ds",
     "spmv_well_ds",
-    "spmv_well_ds_pallas_2d",
-    "spmv_well_pallas",
-    "spmv_well_pallas_2d",
+    "spmv_well_ds_2d",
+    "spmv_well_2d",
+    "spmm_well_2d",
     "well_to_2d",
     "bandwidth",
     "permute_symmetric",

@@ -104,6 +104,10 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
+
+    from spmv_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         import os
@@ -174,8 +178,7 @@ def main() -> int:
                                   amg=args.amg)
         else:
             res = cg_refined(a, b_host.astype(np.float64), rtol=args.rtol,
-                             inner_kmax=args.kmax,
-                             interpret=jax.default_backend() == "cpu")
+                             inner_kmax=args.kmax)
         timer.add("1.Solve", time.perf_counter() - t0)
         r = a.matvec(res.x) - b_host.astype(np.float64)
         print(timer.report())

@@ -74,6 +74,10 @@ def main() -> int:
     args = ap.parse_args()
 
     import jax
+
+    from spmv_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         if args.devices > 1:

@@ -1,15 +1,12 @@
 """Double-single (two-float32) arithmetic building blocks.
 
-TPU has no native f64 vectors: XLA emulates f64 in software and even a pure
-f64 STREAMING copy measures ~91 GB/s on the attached chip (~1/6 of the f32
-streaming rate; SpMV through it ~30 GB/s, BENCH_NOTES.md). Double-single
-representation — v = hi + lo with both f32, |lo| <= ulp(hi)/2 — carries
-~48 significand bits (vs f32's 24, f64's 53) at f32 storage and VPU cost:
-the error-free transformations below (Dekker/Knuth, no FMA required) run as
-plain f32 vector ops inside Pallas kernels and XLA alike.
+Double-single representation — v = hi + lo with both f32,
+|lo| <= ulp(hi)/2 — carries ~48 significand bits (vs f32's 24, f64's 53)
+at f32 storage and arithmetic cost: the error-free transformations below
+(Dekker/Knuth, no FMA required) run as plain f32 vector ops under XLA.
 
-Used by ops.spmv_dia_ds_pallas (float64-class SpMV at near-f32 speed) and
-usable standalone for vector math on any backend.
+Used by ops.spmv_dia_ds and ops.spmv_well (float64-class SpMV from f32
+storage) and usable standalone for vector math on any backend.
 """
 from __future__ import annotations
 

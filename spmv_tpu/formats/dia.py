@@ -2,9 +2,8 @@
 
 For banded operators (the reference's benchmark matrices: 1-D 3-point and
 2-D 5-point Laplacians, reference demos/CreateA.cpp:52-68), SpMV in DIA form
-is a handful of shifted elementwise multiply-adds — no gather at all. That is
-the speed-of-light formulation on TPU: pure VPU work at HBM bandwidth, one
-pass over the diagonal data.
+is a handful of shifted elementwise multiply-adds — no gather at all: one
+pass over the diagonal data at memory bandwidth.
 
 data[d, i] = A[i, i + offsets[d]]  (zero where the column falls outside).
 """
@@ -25,11 +24,9 @@ class DiaMatrix:
 
     data:    (nrows_pad // 128, ndiags * 128) — ROW-INTERLEAVED lane layout:
              data[r, d*128 + l] = A[128r + l, 128r + l + offsets[d]].
-             Interleaving makes each kernel tile ONE contiguous HBM chunk —
-             measured 7.5%% faster than per-diagonal (K, R, 128) planes,
-             whose K strided streams the DMA engine interleaves poorly.
-             Kept 2-D (not (R, K, 128)): Mosaic pads a minor dim of K < 8 to
-             full sublane tiles; a lane slice at 128-multiples is free.
+             Interleaving keeps every row block of all K diagonals in ONE
+             contiguous chunk of device memory; a lane slice at
+             128-multiples picks one diagonal.
     offsets: static tuple of diagonal offsets (j - i), ascending
     """
 
@@ -149,7 +146,7 @@ def csr_to_dia(
 ) -> DiaMatrix:
     """Convert host CSR to DIA. Raises if the matrix has more than
     ``max_diags`` distinct diagonals (then it is not band-structured and ELL
-    should be used instead). Rows pad to a multiple of 128 (the TPU lane
+    should be used instead). Rows pad to a multiple of 128 (the lane
     layout of ``DiaMatrix.data``).
 
     With ``symmetric=True`` (input must be structurally+numerically
@@ -160,8 +157,6 @@ def csr_to_dia(
     the same data shifted by -o.
     """
     row_align_eff = max(_round_up(row_align, 128), 128)
-    if a.nrows > 1_000_000:
-        row_align_eff = max(row_align_eff, 1024 * 128)  # see _csr_to_dia_host
     nat = _csr_to_dia_native(a, row_align_eff, max_diags, dtype, symmetric,
                              interleaved=True)
     if nat is not None:
@@ -185,11 +180,6 @@ def csr_to_dia(
 
 def _csr_to_dia_host(a, row_align, max_diags, dtype, symmetric):
     row_align = max(_round_up(row_align, 128), 128)
-    if a.nrows > 1_000_000:
-        # guarantee the Pallas tile picker a 1024-lane-row divisor — matrix
-        # row counts like 1e8 (781250 lane rows = 2*5^8) otherwise have no
-        # usable tile divisor; the padding overhead is <= 0.14%
-        row_align = max(row_align, 1024 * 128)
     out = _csr_to_dia_native(a, row_align, max_diags, dtype, symmetric)
     if out is not None:
         return out

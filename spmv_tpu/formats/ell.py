@@ -1,9 +1,9 @@
-"""Padded ELLPACK device format — the general-sparsity TPU format.
+"""Padded ELLPACK device format — the plain general-sparsity format.
 
 ELL stores a (nrows, K) rectangle of column indices and values, K = max
 nnz/row (optionally rounded up for lane alignment); short rows are padded
-with (col=0, val=0). A rectangle of uniform-length rows is what TPU vector
-units want: SpMV becomes a dense gather + multiply + row-sum with static
+with (col=0, val=0). A rectangle of uniform-length rows has static shapes:
+SpMV becomes a dense gather + multiply + row-sum with static
 shapes, instead of the reference's per-row CSR pointer chasing
 (reference spmv/csr_kernels.cpp:42-50).
 

@@ -1,29 +1,19 @@
-"""WELL — windowed gather-ELL, the TPU general-sparsity device format.
-
-The problem it solves: TPU has no performant per-lane dynamic gather from
-large arrays (the XLA gather formulation of ELL measured ~1 GB/s on chip,
-BENCH_NOTES.md), so running arbitrary CSR at device speed — what the
-reference gets from vendor kernels (cuSPARSE,
-reference spmv/cuda/csr_kernels.cuda.cu:106-151) — needs a format designed
-around the two gathers Mosaic DOES have:
-
-  1. a full-speed LANE gather (``take_along_axis`` axis=1: any of the 128
-     elements within a row, per output element);
-  2. the MXU: gathering ROWS of a (W, 128) window is a one-hot matmul.
+"""WELL — windowed gather-ELL, the general-sparsity device format.
 
 Layout: A-row r lives at output lane ``r % 128`` of group ``g = r // 128``.
 Each group packs its nonzeros into K slots; the invariant is that all 128
-entries of one slot read from a single 128-aligned x segment. Per slot the
-kernel then needs ONE window-row gather (amortized into a single one-hot
-matmul over all slots of a tile) plus one lane gather — both fast.
+entries of one slot read from a single 128-aligned x segment inside the
+tile's window. The apply (ops/spmv_well.py) is one gather per stored slot
+plus a sum over slots; keeping every tile's columns inside a window of
+``wseg`` segments bounds the x footprint each tile touches.
 
 Storage per group g, slot k, lane j:
   values[g, k, j]  — the nonzero of row 128g+j assigned to slot k (0 = pad)
   pos[g, k, j]     — window-relative flat position seg*128 + lane of its
                      column; padding lanes carry the slot's segment with
-                     lane 0 (the kernel reads the slot segment from lane 0)
+                     lane 0
   w0[t]            — per tile of ``tile_groups`` groups: first x segment of
-                     its window (scalar-prefetched for the window DMA)
+                     its window
 
 Slot assignment (host, vectorized): nonzeros of a group are keyed by
 (segment, per-row multiplicity); each distinct segment gets max-multiplicity
@@ -31,32 +21,19 @@ consecutive slots. K = max over groups. Storage efficiency = nnz/(G*K*128);
 conversion reports it and callers gate on it (``well_occupancy``) — RCM
 reordering (spmv_tpu.reorder) typically improves it dramatically.
 
-Paired slots (round 3): a 128-row group's band of columns usually straddles
-a 128-aligned segment boundary, so single-segment slots come out
+Paired slots: a 128-row group's band of columns usually straddles a
+128-aligned segment boundary, so single-segment slots come out
 complementary-half-full (rows j < t hit segment s, rows j >= t hit s+1) —
-measured occupancy ~0.54 on banded-random, i.e. ~2x slot inflation. Since
-the kernel's wall-clock is stream + dependent-compute (tools/
-exp_well_overlap.py ablations), that inflation is paid twice. The fix:
-after rank-based packing, greedily MERGE slot pairs whose 128-lane
-occupancy masks are disjoint (any two segments — no adjacency needed). A
-merged slot's two segments are carried by ``pos`` itself at the ENDPOINT
-lanes: the entry at out-lane 0 always belongs to leg a and the entry at
-out-lane 127 to leg b (padding endpoints are filled accordingly; merges
-where one leg owns both endpoints are rejected — they are rare), so the
-kernel reads sa = pos[:, 0:1] >> 7 and sb = pos[:, 127:128] >> 7 as two
-FREE static lane slices. Cross-lane min/max reductions and side tables
-were both measured out: Mosaic lowers a (B, 128) i32 min reduction at
-+0.7 ms on the 4M bench config (2x the whole kernel), and a (G, 2K) side
-table needs a lane-strided concatenate Mosaic rejects. The kernel gathers
-both segment rows (two one-hot MXU legs) and selects per lane by
-comparing each element's own ``pos``-derived segment against sa.
-Measured K: 11 -> 8 on the 4M-row banded-random bench config, 9 -> 7 on
-the RCM'd 129.6k FEM-like operator — 22-27%% less storage/traffic.
-Same-run chip A/B (round 3): WALL-CLOCK NEUTRAL (0.63 vs 0.66 ms — the
-kernel is compute-bound per the exp_well_overlap ablations, and the
-second gather leg's MXU/VPU work offsets the stream saving), so pairing
-defaults OFF; opt in (``pair=True``) when HBM capacity or the occupancy
-gate (0.54 -> 0.74 measured) matters more than the last 4%% of speed.
+occupancy ~0.54 on banded-random, i.e. ~2x slot inflation. After rank-based
+packing, slot pairs whose 128-lane occupancy masks are disjoint are greedily
+MERGED (any two segments). A merged slot's two segments are carried by
+``pos`` itself at the ENDPOINT lanes: the entry at out-lane 0 always belongs
+to leg a and the entry at out-lane 127 to leg b (padding endpoints are
+filled accordingly; merges where one leg owns both endpoints are rejected —
+they are rare). Every element's own ``pos`` holds its segment, so the
+gather needs no leg select. Measured K: 11 -> 8 on the 4M-row
+banded-random operator, 9 -> 7 on the RCM'd 129.6k FEM-like operator —
+22-27% less storage. Pairing is opt-in (``pair=True``).
 """
 from __future__ import annotations
 
@@ -624,13 +601,12 @@ class SymWellMatrix:
     """Symmetric general-sparsity device format: A = L + D + L^T with the
     strict lower triangle L stored as a WELL operator AND its transpose
     L^T PRE-BUILT as a second WELL operator at conversion time — the
-    symmetric apply is two gather kernels plus a diagonal axpy, with ZERO
-    scatters on the hot path. This is the TPU answer to the reference's
-    symmetric mode (conflict-map two-phase on CPU,
-    reference spmv/openmp/csr_kernels.openmp.cpp:89-168; global-memory
-    atomics on GPU, reference spmv/cuda/csr_kernels.cuda.cu:20-47): TPU has
-    no atomics, and the XLA scatter-add formulation measured ~1 GB/s — so
-    don't scatter at all; trade 2x index storage for gather-speed.
+    symmetric apply is two gathers plus a diagonal axpy, with ZERO scatters
+    on the hot path. The reference's symmetric mode uses a conflict-map
+    two-phase on CPU (reference spmv/openmp/csr_kernels.openmp.cpp:89-168)
+    and global-memory atomics on GPU (reference
+    spmv/cuda/csr_kernels.cuda.cu:20-47); here the scatter is avoided
+    altogether, trading 2x index storage for deterministic gathers.
 
     Each triangle carries its own compact-COO far remainder (entries
     outside its window split), applied as two tiny scatter-adds — empty

@@ -1,6 +1,6 @@
 """Problem generators (host side).
 
-TPU-native analogue of the reference's matrix generator demo
+The analogue of the reference's matrix generator demo
 (reference demos/CreateA.cpp:52-68: a 1-D 3-point operator with coupling
 gamma) plus the 2-D 5-point Laplacian used for weak-scaling benchmarks
 (BASELINE.md configs), and the Gaussian-bump input vector of the demos

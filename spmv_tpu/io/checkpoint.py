@@ -2,7 +2,7 @@
 
 The reference has NO checkpointing (SURVEY.md section 5: "Checkpoint /
 resume: none") — its only persistence is the input-only PETSc reader. For a
-production solver on preemptible TPU pools that is a real gap: a 100M-row CG
+production solver on preemptible accelerator pools that is a real gap: a 100M-row CG
 run losing 500 iterations to a preemption restarts from zero. This module
 adds simple, dependency-light persistence:
 

@@ -1,6 +1,6 @@
 """PETSc binary matrix/vector I/O.
 
-TPU-native rebuild of the reference loader (reference spmv/read_petsc.cpp):
+A rebuild of the reference loader (reference spmv/read_petsc.cpp):
 big-endian PETSc binary format, matrix magic 1211216 and vector magic 1211214
 (read_petsc.cpp:74-76, :230-303). The reference does manual per-value byte
 swaps in C++ (read_petsc.cpp:67-71); here the whole file parses as vectorized

@@ -1,34 +1,46 @@
 """ctypes loader for libspmv_host with lazy on-first-use compilation.
 
-pybind11 is not available in this image, so the native tier exposes a plain
-C ABI consumed via ctypes. The .so is compiled once with g++ and cached next
-to this file; if no toolchain is present everything falls back to the numpy
-implementations (spmv_tpu.io.petsc, spmv_tpu.formats.ell).
+The native tier has no pybind11 dependency: it exposes a plain
+C ABI consumed via ctypes. The .so is compiled once with g++ for a portable
+target (no ``-march=native``) and cached under a name keyed on a hash of the
+source, the compiler flags and the machine architecture, so a library built
+on one host is never loaded on a host it was not built for. If no toolchain
+is present everything falls back to the numpy implementations
+(spmv_tpu.io.petsc, spmv_tpu.formats.ell).
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "spmv_host.cpp")
+_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
 def _so_path() -> str:
-    """Cache the built .so next to the source when the package dir is
-    writable (source checkout, `pip install -e .`), else under
+    """``<checkout>/build/native/libspmv_host-<key>.so`` when the checkout
+    is writable (source checkout, `pip install -e .`), else under
     ~/.cache/spmv_tpu (regular installs land in a read-only
-    site-packages)."""
-    if os.access(_HERE, os.W_OK):
-        return os.path.join(_HERE, "libspmv_host.so")
-    cache = os.path.join(
-        os.environ.get("XDG_CACHE_HOME",
-                       os.path.join(os.path.expanduser("~"), ".cache")),
-        "spmv_tpu")
-    os.makedirs(cache, exist_ok=True)
-    return os.path.join(cache, "libspmv_host.so")
+    site-packages). ``build/`` is git-ignored."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS + [platform.machine()]).encode())
+    name = f"libspmv_host-{h.hexdigest()[:16]}.so"
+    root = os.path.dirname(os.path.dirname(_HERE))
+    if os.access(root, os.W_OK):
+        cache = os.path.join(root, "build", "native")
+    else:
+        cache = os.path.join(
+            os.environ.get("XDG_CACHE_HOME",
+                           os.path.join(os.path.expanduser("~"), ".cache")),
+            "spmv_tpu")
+    return os.path.join(cache, name)
 
 
 _SO = _so_path()
@@ -39,13 +51,15 @@ _tried = False
 
 
 def _build() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        _SRC, "-o", _SO,
-    ]
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", *_FLAGS, _SRC, "-o", tmp]
     try:
-        res = subprocess.run(cmd, capture_output=True, timeout=120)
-        return res.returncode == 0 and os.path.exists(_SO)
+        res = subprocess.run(cmd, capture_output=True, timeout=300)
+        if res.returncode != 0 or not os.path.exists(tmp):
+            return False
+        os.replace(tmp, _SO)  # atomic: concurrent builders never see half
+        return True
     except (OSError, subprocess.TimeoutExpired):
         return False
 
@@ -157,9 +171,8 @@ def get_lib() -> ctypes.CDLL | None:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            if not _build():
-                return None
+        if not os.path.exists(_SO) and not _build():
+            return None
         try:
             _lib = _bind(ctypes.CDLL(_SO))
         except OSError:

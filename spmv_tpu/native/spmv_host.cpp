@@ -3,13 +3,14 @@
 // The reference implements its loader and assembly hot paths in C++
 // (reference spmv/read_petsc.cpp: per-value byte swaps + seeks;
 // reference spmv/Matrix.cpp:226-318: ghost-row redistribution/renumbering).
-// spmv_tpu keeps the TPU compute path in JAX/Pallas and puts the host-side
+// spmv_tpu keeps the device compute path in JAX and puts the host-side
 // heavy lifting here: PETSc binary parsing (big-endian, mmap'd, swapped with
 // a vectorizable loop) and CSR->padded-ELL packing. Exposed over a plain C
-// ABI for ctypes (no pybind11 in this image).
+// ABI for ctypes (no pybind11 dependency).
 //
-// Build: g++ -O3 -march=native -shared -fPIC spmv_host.cpp -o libspmv_host.so
-// (spmv_tpu.native.lib compiles lazily on first use and caches the .so).
+// Build: g++ -O3 -std=c++17 -shared -fPIC spmv_host.cpp -o libspmv_host.so
+// (spmv_tpu.native.lib compiles lazily on first use and caches the .so
+// under build/native/, keyed on source, flags and architecture).
 
 #include <cstdint>
 #include <cstdio>

@@ -1,8 +1,8 @@
-"""Compute kernels (the reference's L1 kernel layer, TPU-native).
+"""Compute applies (the reference's L1 kernel layer).
 
 Where the reference has per-backend CSR/COO inner loops
 (reference spmv/csr_kernels.cpp, spmv/cuda/csr_kernels.cuda.cu, ...),
-spmv_tpu has format-specialized JAX/Pallas kernels that XLA fuses and tiles
-onto the 8x128 VPU. One implementation serves every device (CPU interpret /
-TPU compiled) — the executor double-dispatch layer dissolves.
+spmv_tpu has one format-specialized JAX apply per storage format (DIA,
+double-single DIA, WELL, ELL), which XLA compiles for whatever device runs
+it — the executor double-dispatch layer dissolves.
 """

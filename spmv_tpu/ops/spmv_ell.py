@@ -4,9 +4,9 @@ General-sparsity path. The gather x[colind] + row-sum formulation replaces
 the reference's CSR row loops (reference spmv/csr_kernels.cpp:42-50); the
 symmetric variant replaces the atomic/conflict-map transpose scatter
 (reference spmv/csr_kernels.openmp.cpp:89-221, spmv/cuda/csr_kernels.cuda.cu:23-47)
-with a deterministic XLA scatter-add — TPU has no atomics, and determinism
-makes results bitwise reproducible across runs (an improvement over the
-reference, SURVEY.md section 5).
+with a deterministic XLA scatter-add: determinism makes results bitwise
+reproducible across runs (an improvement over the reference, SURVEY.md
+section 5).
 
 Semantics follow SubMatrix::mult(alpha, in, beta, out)
 (reference spmv/sub_matrix.h:26-122). Outputs are padded to ``a.nrows_pad``;
@@ -48,7 +48,8 @@ def spmv_ell(
 
 def _apply(a: EllMatrix, x: jax.Array) -> jax.Array:
     gathered = jnp.take(x, a.colind, axis=0)  # (nrows_pad, K)
-    out = jnp.einsum("rk,rk->r", a.values, gathered)
+    out = jnp.einsum("rk,rk->r", a.values, gathered,
+                     precision=jax.lax.Precision.HIGHEST)
     if not a.symmetric:
         return out
     # Symmetric storage: A = L + D + L^T with only L in a.values.
@@ -67,7 +68,7 @@ def spmv_ell_transpose(a: EllMatrix, x: jax.Array, out_size: int | None = None) 
     reference declares but never implemented (reference spmv/Matrix.cpp:144-148).
 
     Returns a vector of length ``out_size`` (default a.ncols, padded up to a
-    VPU-friendly multiple of 8).
+    multiple of 8).
     """
     if a.symmetric:
         raise ValueError("symmetric-stored matrices are self-transpose; use spmv_ell")

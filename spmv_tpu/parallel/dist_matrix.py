@@ -25,7 +25,7 @@ The symmetric path (square only) stores the strict lower triangle plus
 diagonal (reference spmv/Matrix.cpp:337-349): transpose contributions to
 owned columns are a deterministic scatter-add, and contributions to ghost
 columns are pushed back to their owners with the reverse plan — the "remote
-reduce-scatter" of the north star (BASELINE.json).
+reduce-scatter".
 
 Distributed CG needs no separate implementation: ``DistMatrix.matvec`` plugs
 into ``spmv_tpu.solvers.cg`` as the operator, and global dots over sharded
@@ -42,6 +42,9 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from spmv_tpu.formats.csr import CSRHost
+from spmv_tpu.ops.spmv_dia import block_to_columns, columns_to_block, dia_apply
+from spmv_tpu.ops.spmv_dia_ds import dia_ds_apply
+from spmv_tpu.ops.spmv_well import well_apply_block, well_ds_apply
 from spmv_tpu.parallel.partition import ShardCSR, owner_ranges, partition_csr
 from spmv_tpu.parallel.comm_plan import (
     CommPlan,
@@ -53,6 +56,9 @@ from spmv_tpu.parallel.comm_plan import (
     halo_scatter_add,
     halo_scatter_add_two_tier,
 )
+
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _plan_tables(plan):
@@ -145,10 +151,10 @@ class DistMatrix:
     nnz_global: int
     mesh: Mesh
     axis_name: str
-    # stencil fast path: when local_format == "dia", the local block is
-    # stored diagonally (lane layout, see DiaMatrix.data) and multiplied
-    # with the Pallas DIA kernel on TPU (spmv_tpu.ops.spmv_dia_pallas);
-    # remote/ghost entries stay ELL. Square matrices only.
+    # stencil path: when local_format == "dia", the local block is stored
+    # diagonally (lane layout, see DiaMatrix.data) and multiplied by the
+    # shifted multiply-adds of spmv_tpu.ops.spmv_dia; remote/ghost entries
+    # stay ELL. Square matrices only.
     local_format: str = "ell"
     local_dia_data: jax.Array | None = None  # (D, R/128, Kd*128) interleaved
     # double-single lo planes (local_format == "dia_ds"): local_dia_data is
@@ -156,9 +162,9 @@ class DistMatrix:
     local_dia_data_lo: jax.Array | None = None
     remote_values_lo: jax.Array | None = None
     dia_offsets: tuple[int, ...] = ()
-    # general-sparsity fast path: when local_format == "well", the local
-    # block is stored as windowed gather-ELL (spmv_tpu.formats.well) and
-    # multiplied with the WELL Pallas kernel (interpret mode on CPU).
+    # general-sparsity path: when local_format == "well", the local block
+    # is stored as windowed gather-ELL (spmv_tpu.formats.well) and
+    # multiplied by the gather of spmv_tpu.ops.spmv_well.
     local_well_values: jax.Array | None = None  # (D, Kw, G, 128)
     local_well_pos: jax.Array | None = None     # (D, Kw, G, 128) int32
     local_well_w0: jax.Array | None = None      # (D, n_tiles) int32
@@ -168,8 +174,7 @@ class DistMatrix:
     local_values_lo: jax.Array | None = None  # far-block lo plane
     # far remainder of the WELL window split as compact COO (local_format
     # == "well"): gathers/scatters far_nnz elements instead of streaming an
-    # (R, K) ELL rectangle through the ~1 GB/s XLA gather — measured 9x
-    # end-to-end on a matrix with an EMPTY far block before this existed.
+    # (R, K) ELL rectangle that is mostly padding.
     # well_ds keeps the ELL far arrays (its ds_add chain needs them) but
     # skips them statically when well_far_nnz == 0.
     far_rows: jax.Array | None = None  # (D, F) int32 local row indices
@@ -178,9 +183,9 @@ class DistMatrix:
     well_far_nnz: int = 0              # static: max per-shard far nnz
     # symmetric general-sparsity (local_format == "well" + symmetric): the
     # local block's transpose L^T PRE-BUILT as a second WELL stack, so the
-    # symmetric apply is two gather kernels + diag axpy — no O(nnz)
-    # scatter-add (the dual-WELL formulation; the reference's symmetric
-    # kernels use conflict maps/atomics, which TPU does not have)
+    # symmetric apply is two gathers + diag axpy — no O(nnz) scatter-add
+    # (the dual-WELL formulation; the reference's symmetric kernels use
+    # conflict maps/atomics)
     local_wellT_values: jax.Array | None = None  # (D, KwT, G, 128)
     local_wellT_pos: jax.Array | None = None     # (D, KwT, G, 128) int32
     local_wellT_w0: jax.Array | None = None      # (D, n_tiles) int32
@@ -194,8 +199,9 @@ class DistMatrix:
     local_wellT_values_lo: jax.Array | None = None
     farT_vals_lo: jax.Array | None = None
     diagonal_lo: jax.Array | None = None
-    # transposed-remote ELL over ghost slots (D, nghost_pad, Kg): the
-    # error-free producer side of the symmetric well_ds reverse exchange
+    # symmetric operators with ghosts: the remote block transposed, an ELL
+    # over ghost slots (D, nghost_pad, Kg) whose columns are local rows —
+    # the producer side of the reverse exchange (a gather, no scatter)
     remoteT_colind: jax.Array | None = None
     remoteT_vals: jax.Array | None = None
     remoteT_vals_lo: jax.Array | None = None
@@ -209,10 +215,8 @@ class DistMatrix:
     # PADDED-GLOBAL columns) and applied against an all-gathered x (hub
     # rows intrinsically read the whole vector): one hub_nnz-sized gather
     # + one hub_nnz-sized scatter-add onto the few hub rows. Compactness
-    # matters: every XLA gather/scatter runs at the measured ~0.15
-    # Gelem/s floor REGARDLESS of shape (BENCH_NOTES r5 "gather floor"),
-    # so a padded (H, Kmax) layout would pay for its padding (34M padded
-    # vs 0.55M real elements on the 500k-row power-law matrix).
+    # matters: a padded (H, Kmax) layout would gather its padding too (34M
+    # padded vs 0.55M real elements on the 500k-row power-law matrix).
     # Composes with any local_format; see _hub_apply.
     hub_rownum: jax.Array | None = None  # (D, F) int32 local row per entry
     hub_colind: jax.Array | None = None  # (D, F) int32 padded-global col
@@ -220,13 +224,6 @@ class DistMatrix:
     hub_nnz: int = 0                     # static: total real hub entries
 
     # ----- static geometry -----
-    @property
-    def on_tpu(self) -> bool:
-        """Whether this matrix's mesh executes on TPU (drives Pallas-kernel
-        dispatch; correct under AOT lowering too, where
-        jax.default_backend() reports the host platform)."""
-        return self.mesh.devices.flat[0].platform == "tpu"
-
     @property
     def comm_axes(self) -> tuple[str, ...]:
         """Mesh axis names for collectives: (axis,) on a 1-D mesh,
@@ -292,8 +289,7 @@ class DistMatrix:
         """Scatter a host global vector into the sharded 2-D lane layout
         (D*pad/128, 128). ``side='col'`` (default) produces matvec INPUT
         vectors; ``side='row'`` produces output-side vectors (for
-        matvec_transpose inputs). The 2-D layout matters: big 1-D vector
-        ops hit pathologically slow paths on TPU."""
+        matvec_transpose inputs)."""
         n_glob, pad = self._side(side)
         ranges = owner_ranges(n_glob, self.n_devices)
         out = np.zeros((self.n_devices, pad), dtype=x_global.dtype)
@@ -319,15 +315,11 @@ class DistMatrix:
     def matvec(self, x: jax.Array) -> jax.Array:
         """y = A @ x: x in the col-side lane layout (D*col_pad/128, 128),
         y in the row-side layout (D*row_pad/128, 128)."""
-        spec = P(self.axis_name, None)
-        mspec = P(self.axis_name, None, None)
-
         if self.local_format in ("dia_ds", "well_ds"):
             # transparent f64 path (auto-selected DS operators stay drop-in):
             # split x into an error-free hi/lo f32 pair, run the DS SpMV,
-            # recombine. The split/combine are two elementwise passes —
-            # noise next to the ~7x the XLA-f64 emulation path costs. Power
-            # users chain matvec_ds directly and skip the conversions.
+            # recombine. Power users chain matvec_ds directly and skip the
+            # conversions.
             if x.dtype == jnp.float64:
                 xh = x.astype(jnp.float32)
                 xl = (x - xh.astype(jnp.float64)).astype(jnp.float32)
@@ -336,8 +328,14 @@ class DistMatrix:
             raise ValueError("double-single matrices apply via matvec_ds "
                              "(pair vectors) or a float64 x; build a "
                              "separate fp32 operator for plain f32 matvec")
+        return self._apply(x)
+
+    def _apply(self, x: jax.Array) -> jax.Array:
+        """Y = A X for x in the block lane layout (D*col_pad/128,
+        nrhs*128); nrhs = 1 is matvec's plain lane layout."""
+        spec = P(self.axis_name, None)
         (args, op_specs, nt, has_diag, has_dia, has_well,
-         n_well, n_wellT) = self._mult_operands()
+         n_well, n_wellT, has_remT) = self._mult_operands()
 
         def per_shard(x_s, lci, lv, rci, rv, *rest):
             rest = list(rest)
@@ -352,21 +350,23 @@ class DistMatrix:
                 tuple(rest.pop(0)[0] for _ in range(n_wellT))
                 if n_wellT else None
             )
-            y = _shard_mult(
+            remoteT = (
+                (rest.pop(0)[0], rest.pop(0)[0]) if has_remT else None
+            )
+            return _shard_mult(
                 x_s, lci[0], lv[0], rci[0], rv[0], diag,
                 tabs, self.plan, self.row_pad,
                 self.symmetric, self.comm_axes, self.local_format, dia_data,
-                self.dia_offsets, self.on_tpu, well, self.well_meta,
-                wellT=wellT, wellT_meta=self.wellT_meta,
+                self.dia_offsets, well, self.well_meta,
+                wellT=wellT, wellT_meta=self.wellT_meta, remoteT=remoteT,
             )
-            return y
 
         y = jax.shard_map(
             per_shard, mesh=self.mesh, in_specs=(spec, *op_specs),
-            out_specs=spec, check_vma=False,  # pallas_call inside shard_map
+            out_specs=spec, check_vma=False,
         )(x, *args)
         if self.hub_nnz > 0:
-            y = y + self._hub_apply(x)
+            y = y + self._hub_apply(x, nrhs=x.shape[1] // 128)
         return y
 
     def _hub_apply(self, x: jax.Array, nrhs: int = 1) -> jax.Array:
@@ -374,10 +374,9 @@ class DistMatrix:
         y_hub = H @ x where H holds the few rows too long for the
         row-uniform formats. Per shard: all-gather x (hub rows read the
         whole vector by nature), gather exactly hub_nnz elements, multiply,
-        and scatter-add onto the few hub rows. Compact per-entry arrays —
-        the measured chip floor charges ~7 ns per gathered/scattered
-        ELEMENT, so padding is the only thing to optimize away. Composes
-        with every local_format as a separate additive term."""
+        and scatter-add onto the few hub rows. Compact per-entry arrays:
+        no padding is gathered. Composes with every local_format as a
+        separate additive term."""
         spec = P(self.axis_name, None)
         rp = self.row_pad
         axes = self.comm_axes
@@ -484,8 +483,12 @@ class DistMatrix:
                 args += [self.farT_rows, self.farT_cols, self.farT_vals]
                 in_specs += [P(self.axis_name, None)] * 3
                 n_wellT = 6
+        has_remT = self.symmetric and self.remoteT_colind is not None
+        if has_remT:
+            args += [self.remoteT_colind, self.remoteT_vals]
+            in_specs += [mspec, mspec]
         return (args, in_specs, len(tables), has_diag, has_dia, has_well,
-                n_well, n_wellT)
+                n_well, n_wellT, has_remT)
 
     # ----- distributed multi-RHS (block) apply -----
     def to_dist_block(self, x_global: np.ndarray, side: str = "col") -> jax.Array:
@@ -521,221 +524,12 @@ class DistMatrix:
 
     def matmat(self, x: jax.Array) -> jax.Array:
         """Y = A X for a block of nrhs vectors: x in the col-side block lane
-        layout (D*col_pad/128, nrhs*128) -> y likewise row-side. DIA local
-        blocks run the multi-RHS SpMM kernel (matrix streamed ONCE for the
-        block, ops/spmm_dia_pallas); every other configuration applies
-        per-column through the single-RHS machinery. Halo exchange runs per
-        column over the same plan. Feeding this to ``solvers.block_cg``
-        gives distributed block solves (the gram einsums psum under jit)."""
-        from spmv_tpu.ops.spmm_dia_pallas import _spmm_dia_pallas_2d
-        from spmv_tpu.ops.spmv_dia_pallas import (
-            _pick_tile_rows,
-            dia_halo_rows,
-        )
-
-        nrhs = x.shape[1] // 128
-        spec = P(self.axis_name, None)
-        rp = self.row_pad
-        on_tpu = self.on_tpu
-
-        # mrhs fast path whenever the dtype/tile admit it (interpret mode on
-        # CPU, so tests exercise the SAME branch production multichip runs)
-        mrhs_tr = 0
-        hr_d = 0
-        if (self.local_format == "dia" and not self.symmetric
-                and self.local_values.dtype in (jnp.float32, jnp.bfloat16)):
-            hr_d = dia_halo_rows(self.dia_offsets)
-            if hr_d <= 512:
-                mrhs_tr = _pick_tile_rows(
-                    self.plan.nlocal_pad // 128, len(self.dia_offsets), hr_d,
-                    self.local_values.dtype.itemsize, nrhs=nrhs,
-                )
-        # WELL block fast path: matrix streamed once, gather metadata
-        # decoded once for the whole block (ops/spmm_well_pallas); VMEM
-        # gate on the (2, wseg, nrhs*128) window scratch + pipelined
-        # tiles. Symmetric dual-WELL blocks run TWO SpMM passes (L and the
-        # pre-built L^T) plus per-column diag/far terms and the batched
-        # reverse exchange.
-        mrhs_well = False
-        if (self.local_format == "well"
-                and self.local_well_values.dtype in (jnp.float32,
-                                                     jnp.bfloat16)):
-            k_w0, wseg_w0, tg_w0, _ = _well_meta4(self.well_meta)
-            itemsize = self.local_well_values.dtype.itemsize
-            need = (2 * wseg_w0 * nrhs * 128 * 4
-                    + 4 * k_w0 * tg_w0 * 128 * itemsize
-                    + 2 * tg_w0 * nrhs * 128 * itemsize)
-            if self.symmetric:
-                k_t0, wseg_t0, tg_t0, _ = _well_meta4(self.wellT_meta)
-                need += (2 * wseg_t0 * nrhs * 128 * 4
-                         + 4 * k_t0 * tg_t0 * 128 * itemsize
-                         + 2 * tg_t0 * nrhs * 128 * itemsize)
-            mrhs_well = need <= 16 * 1024 * 1024
-
-        (args, op_specs, nt, has_diag, has_dia, has_well,
-         n_well, n_wellT) = self._mult_operands()
-
-        def per_shard(x_s2, lci, lv, rci, rv, *rest):
-            rest = list(rest)
-            tabs = tuple(rest.pop(0)[0] for _ in range(nt))
-            diag = rest.pop(0)[0] if has_diag else None
-            dia_data = rest.pop(0)[0] if has_dia else None
-            well = (tuple(rest.pop(0)[0] for _ in range(n_well))
-                    if has_well else None)
-            wellT = (tuple(rest.pop(0)[0] for _ in range(n_wellT))
-                     if n_wellT else None)
-            cols = [x_s2[:, r * 128:(r + 1) * 128] for r in range(nrhs)]
-            if mrhs_tr > 0:
-                y2 = _spmm_dia_pallas_2d(
-                    dia_data, x_s2, self.dia_offsets, mrhs_tr, hr_d, nrhs,
-                    interpret=not on_tpu,
-                )
-                if self.plan.nghost_pad > 0 and len(self.plan.rounds) > 0:
-                    # BLOCK halo exchange: one ppermute per round for the
-                    # whole nrhs block (halo rounds are latency-bound; the
-                    # batched payload costs what one column's round does)
-                    xblk = jnp.stack(
-                        [c.reshape(-1) for c in cols], axis=1
-                    )  # (nlocal_pad, nrhs)
-                    ghosts = _plan_gather(self.plan, xblk, tabs,
-                                          self.comm_axes)
-                    gy = jnp.einsum(
-                        "rk,rkn->rn", rv[0],
-                        jnp.take(ghosts, rci[0], axis=0)
-                    )  # (R, nrhs)
-                    outs = [
-                        y2[:, r * 128:(r + 1) * 128]
-                        + gy[:, r].reshape(-1, 128)
-                        for r in range(nrhs)
-                    ]
-                    y2 = jnp.concatenate(outs, axis=1)
-                return y2
-            if mrhs_well:
-                from spmv_tpu.formats.well import WellMatrix
-                from spmv_tpu.ops.spmm_well_pallas import spmm_well_pallas_2d
-
-                k_w, wseg_w, tg_w, paired_w = _well_meta4(self.well_meta)
-                wm = WellMatrix(
-                    values=well[0], pos=well[1], w0=well[2],
-                    paired=paired_w,
-                    nrows=rp, ncols=self.plan.nlocal_pad,
-                    wseg=wseg_w, tile_groups=tg_w,
-                    nseg=self.plan.nlocal_pad // 128,
-                )
-                y2 = spmm_well_pallas_2d(wm, x_s2, nrhs,
-                                         interpret=not on_tpu)
-
-                def coo_cols(idx_r, idx_c, vals_f):
-                    # per-column COO scatter-add (tiny post-RCM)
-                    outs = []
-                    for r in range(nrhs):
-                        t = jnp.zeros((rp,), x_s2.dtype).at[idx_r].add(
-                            vals_f * jnp.take(cols[r].reshape(-1), idx_c,
-                                              axis=0),
-                            mode="promise_in_bounds",
-                        )
-                        outs.append(y2[:, r * 128:(r + 1) * 128]
-                                    + t.reshape(-1, 128))
-                    return jnp.concatenate(outs, axis=1)
-
-                if len(well) > 3:
-                    fr_, fc_, fv_ = well[3:6]
-                    y2 = coo_cols(fr_, fc_, fv_)
-                if self.symmetric:
-                    # dual-WELL block: SECOND SpMM over the pre-built L^T
-                    # stack + per-column diagonal axpy (+ farT COO)
-                    k_t, wseg_t, tg_t, paired_t = _well_meta4(
-                        self.wellT_meta)
-                    wmT = WellMatrix(
-                        values=wellT[0], pos=wellT[1], w0=wellT[2],
-                        paired=paired_t,
-                        nrows=rp, ncols=self.plan.nlocal_pad,
-                        wseg=wseg_t, tile_groups=tg_t,
-                        nseg=self.plan.nlocal_pad // 128,
-                    )
-                    y2 = y2 + spmm_well_pallas_2d(wmT, x_s2, nrhs,
-                                                  interpret=not on_tpu)
-                    d2 = diag.reshape(-1, 128)
-                    y2 = y2 + jnp.concatenate(
-                        [d2 * cols[r] for r in range(nrhs)], axis=1)
-                    if len(wellT) > 3:
-                        frT, fcT, fvT = wellT[3:6]
-                        y2 = coo_cols(frT, fcT, fvT)
-                if self.plan.nghost_pad > 0 and len(self.plan.rounds) > 0:
-                    # block halo + remote-ELL product, as the DIA path
-                    xblk = jnp.stack(
-                        [c.reshape(-1) for c in cols], axis=1)
-                    ghosts = _plan_gather(self.plan, xblk, tabs,
-                                          self.comm_axes)
-                    gy = jnp.einsum(
-                        "rk,rkn->rn", rv[0],
-                        jnp.take(ghosts, rci[0], axis=0))
-                    outs = [
-                        y2[:, r * 128:(r + 1) * 128]
-                        + gy[:, r].reshape(-1, 128)
-                        for r in range(nrhs)
-                    ]
-                    y2 = jnp.concatenate(outs, axis=1)
-                    if self.symmetric:
-                        # batched reverse: ghost-column contributions for
-                        # the whole block in ONE reverse set per round
-                        gzblk = jnp.stack([
-                            jnp.zeros((self.plan.nghost_pad,),
-                                      x_s2.dtype).at[rci[0].reshape(-1)].add(
-                                (rv[0] * cols[r].reshape(-1)[:, None]
-                                 ).reshape(-1),
-                                mode="promise_in_bounds")
-                            for r in range(nrhs)
-                        ], axis=1)
-                        yblk = jnp.stack(
-                            [y2[:, r * 128:(r + 1) * 128].reshape(-1)
-                             for r in range(nrhs)], axis=1)
-                        yblk = _plan_scatter_add(self.plan, gzblk, yblk,
-                                                 tabs, self.comm_axes)
-                        y2 = jnp.concatenate(
-                            [yblk[:, r].reshape(-1, 128)
-                             for r in range(nrhs)], axis=1)
-                return y2
-            # generic: per-column local math, but the halo moves as ONE
-            # block — a single ppermute set forward (and, symmetric, one
-            # reverse set) regardless of nrhs, for EVERY local format
-            # (VERDICT r2 item 8; halo rounds are latency-bound, so the
-            # batched payload costs what one column's round does)
-            have_ghosts = (self.plan.nghost_pad > 0
-                           and len(self.plan.rounds) > 0)
-            gblk = None
-            if have_ghosts:
-                xblk = jnp.stack([c.reshape(-1) for c in cols], axis=1)
-                gblk = _plan_gather(self.plan, xblk, tabs, self.comm_axes)
-            ys, gzs = [], []
-            for r in range(nrhs):
-                out = _shard_mult(
-                    cols[r], lci[0], lv[0], rci[0], rv[0], diag,
-                    tabs, self.plan, rp, self.symmetric, self.comm_axes,
-                    self.local_format, dia_data, self.dia_offsets,
-                    on_tpu, well, self.well_meta,
-                    wellT=wellT, wellT_meta=self.wellT_meta,
-                    ghosts_pre=None if gblk is None else gblk[:, r],
-                    defer_reverse=True,
-                )
-                y_r, gz_r = out
-                ys.append(y_r)
-                gzs.append(gz_r)
-            if self.symmetric and have_ghosts and gzs[0] is not None:
-                yblk = jnp.stack([y.reshape(-1) for y in ys], axis=1)
-                gzblk = jnp.stack(gzs, axis=1)
-                yblk = _plan_scatter_add(self.plan, gzblk, yblk, tabs,
-                                         self.comm_axes)
-                ys = [yblk[:, r].reshape(-1, 128) for r in range(nrhs)]
-            return jnp.concatenate(ys, axis=1)
-
-        y = jax.shard_map(
-            per_shard, mesh=self.mesh, in_specs=(spec, *op_specs),
-            out_specs=spec, check_vma=False,
-        )(x, *args)
-        if self.hub_nnz > 0:
-            y = y + self._hub_apply(x, nrhs=nrhs)
-        return y
+        layout (D*col_pad/128, nrhs*128) -> y likewise row-side. DIA and
+        WELL local blocks read the matrix once for the whole block; the
+        halo moves as one block (one ppermute set per round, independent
+        of nrhs). Feeding this to ``solvers.block_cg`` gives distributed
+        block solves (the gram einsums psum under jit)."""
+        return self._apply(x)
 
     def jacobi_preconditioner(self):
         """z = r / diag(A) closure for cg(preconditioner=...) — optional
@@ -752,9 +546,9 @@ class DistMatrix:
         """Double-single distributed SpMV (local_format 'dia_ds'/'well_ds'):
         (xh, xl) f32 pairs in the col-side lane layout -> (yh, yl) pairs.
         Both legs ride the same halo plan (two ppermute sets); the local
-        block runs the DS Pallas kernel (DIA or WELL), the remote/far terms
+        block runs the DS DIA or WELL apply, the remote/far terms
         error-free f32 arithmetic (spmv_tpu.ds). Gives distributed
-        float64-class SpMV without any XLA-f64 emulation."""
+        float64-class SpMV from float32 storage and arithmetic."""
         if self.local_format not in ("dia_ds", "well_ds"):
             raise ValueError("matvec_ds requires local_format 'dia_ds' or "
                              "'well_ds'")
@@ -768,7 +562,6 @@ class DistMatrix:
         nt = len(tables)
         plan = self.plan
         rp = self.row_pad
-        on_tpu = self.on_tpu
 
         def ell_ds_term(ci, vh, vl, gh_src, gl_src, acc_h, acc_l):
             """Accumulate an ELL block (remote or far) in ds arithmetic."""
@@ -782,7 +575,7 @@ class DistMatrix:
 
         sym_well = is_well and self.symmetric
         has_farT = sym_well and self.well_farT_nnz > 0
-        has_remT = sym_well and getattr(self, "remoteT_colind", None) is not None
+        has_remT = sym_well and self.remoteT_colind is not None
 
         def per_shard(xh2, xl2, rci, rvh, rvl, *rest):
             rest = list(rest)
@@ -819,20 +612,8 @@ class DistMatrix:
                 gh = _plan_gather(plan, xh2.reshape(-1), tabs, self.comm_axes)
                 gl = _plan_gather(plan, xl2.reshape(-1), tabs, self.comm_axes)
             if is_well:
-                from spmv_tpu.ops.spmv_well_pallas import (
-                    WellDsMatrix,
-                    spmv_well_ds_pallas_2d,
-                )
-
-                k_w, wseg_w, tg_w, paired_w = _well_meta4(self.well_meta)
-                wm = WellDsMatrix(
-                    values_hi=wvh, values_lo=wvl, pos=wp, w0=ww0,
-                    paired=paired_w,
-                    nrows=rp, ncols=plan.nlocal_pad, wseg=wseg_w,
-                    tile_groups=tg_w, nseg=plan.nlocal_pad // 128,
-                )
-                yh, yl = spmv_well_ds_pallas_2d(wm, xh2, xl2,
-                                                interpret=not on_tpu)
+                yh, yl = well_ds_apply(wvh, wvl, wp, ww0,
+                                       self.well_meta[2], xh2, xl2)
                 if self.well_far_nnz > 0:
                     # far remainder of the window split, in ds arithmetic
                     # (statically absent when the split left nothing out)
@@ -845,17 +626,10 @@ class DistMatrix:
                                     fl.reshape(yh.shape))
                 if sym_well:
                     # symmetric dual-WELL in DS: the local L^T term is a
-                    # SECOND DS gather kernel (no scatters), plus the DS
-                    # diagonal product and the (ELL, error-free) farT chain
-                    k_t, wseg_t, tg_t, paired_t = _well_meta4(self.wellT_meta)
-                    wmT = WellDsMatrix(
-                        values_hi=wtv, values_lo=wtl, pos=wtp, w0=wtw0,
-                        paired=paired_t,
-                        nrows=rp, ncols=plan.nlocal_pad, wseg=wseg_t,
-                        tile_groups=tg_t, nseg=plan.nlocal_pad // 128,
-                    )
-                    th, tl = spmv_well_ds_pallas_2d(wmT, xh2, xl2,
-                                                    interpret=not on_tpu)
+                    # SECOND DS gather (no scatters), plus the DS diagonal
+                    # product and the (ELL, error-free) farT chain
+                    th, tl = well_ds_apply(wtv, wtl, wtp, wtw0,
+                                           self.wellT_meta[2], xh2, xl2)
                     yh, yl = ds_add(yh, yl, th, tl)
                     ph, plo = ds_mul_f32(dgh.reshape(yh.shape),
                                          dgl.reshape(yh.shape), xh2, xl2)
@@ -869,22 +643,9 @@ class DistMatrix:
                         yh, yl = ds_add(yh, yl, fh.reshape(yh.shape),
                                         fl.reshape(yh.shape))
             else:
-                from spmv_tpu.ops.spmv_dia_ds_pallas import (
-                    DiaDsMatrix,
-                    dia_ds_pallas_supported,
-                    spmv_dia_ds_pallas_2d,
-                    spmv_dia_ds_xla,
-                )
-
-                dm = DiaDsMatrix(
-                    data_hi=dh, data_lo=dl, offsets=self.dia_offsets,
-                    nrows=plan.nlocal_pad, ncols=plan.nlocal_pad,
-                )
-                if on_tpu and dia_ds_pallas_supported(dm):
-                    yh, yl = spmv_dia_ds_pallas_2d(dm, xh2, xl2)
-                else:
-                    # tiny shards (< kernel tile floor) and CPU: XLA DS apply
-                    yh, yl = spmv_dia_ds_xla(dm, xh2, xl2)
+                yh3, yl3 = dia_ds_apply(dh, dl, self.dia_offsets,
+                                        xh2[:, None, :], xl2[:, None, :])
+                yh, yl = yh3[:, 0, :], yl3[:, 0, :]
             if have_ghosts:
                 acc_h = jnp.zeros((rp,), jnp.float32)
                 acc_l = jnp.zeros((rp,), jnp.float32)
@@ -952,15 +713,14 @@ class DistMatrix:
         """Double-single distributed SpMM: (xh, xl) f32 pairs in the sharded
         SpMM lane layout (D*col_pad/128, nrhs*128) -> (yh, yl) pairs.
 
-        The f64-class block apply: the local DS DIA kernel streams BOTH
-        matrix planes once for the whole block
-        (ops/spmv_dia_ds_pallas._dia_ds_mrhs_kernel); the halo moves hi and
-        lo as two block gathers (one ppermute set per round per plane,
-        independent of nrhs); remote terms run error-free f32 arithmetic
-        per column. ``local_format='well_ds'`` routes the block through
-        the DS WELL SpMM (ops/spmm_well_pallas) — the f64-class block
-        apply for GENERAL sparsity — with the far window-split remainder
-        as per-column DS ELL chains."""
+        The f64-class block apply: the local DS DIA product reads BOTH
+        matrix planes once for the whole block (ops/spmv_dia_ds); the halo
+        moves hi and lo as two block gathers (one ppermute set per round per
+        plane, independent of nrhs); remote terms run error-free f32
+        arithmetic per column. ``local_format='well_ds'`` routes the block
+        through the DS WELL gather (ops/spmv_well) — the f64-class block
+        apply for GENERAL sparsity — with the far window-split remainder as
+        per-column DS ELL chains."""
         if self.local_format not in ("dia_ds", "well_ds"):
             raise ValueError(
                 "matmat_ds requires local_format 'dia_ds' or 'well_ds'")
@@ -978,7 +738,6 @@ class DistMatrix:
         nt = len(tables)
         plan = self.plan
         rp = self.row_pad
-        on_tpu = self.on_tpu
 
         def ell_ds_term(ci, vh_, vl_, gh_src, gl_src, acc_h, acc_l):
             """Accumulate an ELL block (remote or far) in ds arithmetic."""
@@ -991,10 +750,7 @@ class DistMatrix:
             return acc_h, acc_l
 
         if self.local_format == "well_ds":
-            from spmv_tpu.ops.spmm_well_pallas import spmm_well_ds_pallas_2d
-            from spmv_tpu.ops.spmv_well_pallas import WellDsMatrix
-
-            k_w, wseg_w, tg_w, paired_w = _well_meta4(self.well_meta)
+            tg_w = self.well_meta[2]
             m4spec = P(self.axis_name, None, None, None)
             has_far = self.well_far_nnz > 0
 
@@ -1002,14 +758,8 @@ class DistMatrix:
                             lci, lvh, lvl, *tabs_in):
                 tabs = tuple(t[0] for t in tabs_in)
                 rci_, rvh_, rvl_ = rci[0], rvh[0], rvl[0]
-                wm = WellDsMatrix(
-                    values_hi=wvh[0], values_lo=wvl[0], pos=wp[0],
-                    w0=ww0[0], paired=paired_w,
-                    nrows=rp, ncols=plan.nlocal_pad, wseg=wseg_w,
-                    tile_groups=tg_w, nseg=plan.nlocal_pad // 128,
-                )
-                yh, yl = spmm_well_ds_pallas_2d(wm, xh2, xl2, nrhs,
-                                                interpret=not on_tpu)
+                yh, yl = well_ds_apply(wvh[0], wvl[0], wp[0], ww0[0], tg_w,
+                                       xh2, xl2)
 
                 def col(v2, r):
                     return v2[:, r * 128:(r + 1) * 128].reshape(-1)
@@ -1069,22 +819,11 @@ class DistMatrix:
         def per_shard(xh2, xl2, rci, rvh, rvl, dh, dl, *tabs_in):
             tabs = tuple(t[0] for t in tabs_in)
             rci_, rvh_, rvl_ = rci[0], rvh[0], rvl[0]
-            dh_, dl_ = dh[0], dl[0]
-            from spmv_tpu.ops.spmv_dia_ds_pallas import (
-                DiaDsMatrix,
-                spmm_dia_ds_pallas_2d,
-                spmm_dia_ds_supported,
-                spmm_dia_ds_xla,
-            )
-
-            dm = DiaDsMatrix(
-                data_hi=dh_, data_lo=dl_, offsets=self.dia_offsets,
-                nrows=plan.nlocal_pad, ncols=plan.nlocal_pad,
-            )
-            if on_tpu and spmm_dia_ds_supported(dm, nrhs):
-                yh, yl = spmm_dia_ds_pallas_2d(dm, xh2, xl2, nrhs)
-            else:
-                yh, yl = spmm_dia_ds_xla(dm, xh2, xl2, nrhs)
+            rows = xh2.shape[0]
+            yh3, yl3 = dia_ds_apply(dh[0], dl[0], self.dia_offsets,
+                                    xh2.reshape(rows, nrhs, 128),
+                                    xl2.reshape(rows, nrhs, 128))
+            yh, yl = yh3.reshape(rows, -1), yl3.reshape(rows, -1)
             have_ghosts = plan.nghost_pad > 0 and len(plan.rounds) > 0
             if have_ghosts:
                 # block halo per plane: (nlocal_pad, nrhs) moved in one
@@ -1237,7 +976,7 @@ class DistMatrix:
                 n_w = 6 if self.well_far_nnz > 0 else 3
                 wellt = tuple(rest.pop(0)[0] for _ in range(n_w))
                 wv, wp, ww0 = wellt[:3]
-                k_w, wseg_w, tg_w, _ = _well_meta4(self.well_meta)
+                tg_w = self.well_meta[2]
                 cols = wp.astype(jnp.int32) + (
                     jnp.repeat(ww0.astype(jnp.int32), tg_w) * 128
                 )[None, :, None]
@@ -1253,22 +992,8 @@ class DistMatrix:
                         fv_ * x_s[fr_], mode="promise_in_bounds"
                     )
             elif has_dia:
-                from spmv_tpu.formats.dia import DiaMatrix
-                from spmv_tpu.ops.spmv_dia_pallas import (
-                    dia_pallas_supported,
-                    spmv_dia_pallas_2d,
-                )
-
-                dm = DiaMatrix(
-                    data=rest.pop(0)[0], offsets=dia_offsets_t,
-                    nrows=rp, ncols=rp, symmetric=False,
-                )
-                if self.on_tpu and dia_pallas_supported(dm):
-                    y = spmv_dia_pallas_2d(dm, x_s2).reshape(rp)
-                else:
-                    from spmv_tpu.ops.spmv_dia import spmv_dia
-
-                    y = spmv_dia(dm, x_s, method="xla")
+                y = dia_apply(rest.pop(0)[0], dia_offsets_t,
+                              x_s2[:, None, :]).reshape(rp)
             else:
                 # owned columns: scatter-add v * x[row] at local colind
                 y = jnp.zeros((cp,), dtype=x_s.dtype)
@@ -1340,146 +1065,84 @@ jax.tree_util.register_dataclass(
 )
 
 
-def _well_meta4(meta: tuple) -> tuple:
-    """(k, wseg, tg[, paired]) -> (k, wseg, tg, paired); pre-pairing
-    3-tuples (old checkpoints) read as paired=False."""
-    k, wseg, tg = meta[:3]
-    return k, wseg, tg, bool(meta[3]) if len(meta) > 3 else False
+def _coo_apply(coo, xc: jax.Array, nrows: int) -> jax.Array:
+    """Compact-COO term (rows, cols, vals) on the (n, nrhs) column view:
+    touches exactly the stored entries."""
+    rows, cols, vals = coo
+    return jnp.zeros((nrows, xc.shape[1]), xc.dtype).at[rows].add(
+        vals[:, None] * jnp.take(xc, cols, axis=0), mode="promise_in_bounds")
 
 
 def _shard_mult(
     x2, lci, lv, rci, rv, diag, tables,
     plan, row_pad: int, symmetric: bool, comm_axes: tuple[str, ...],
     local_format: str = "ell", dia_data=None, dia_offsets: tuple = (),
-    on_tpu: bool | None = None, well=None, well_meta: tuple = (),
-    wellT=None, wellT_meta: tuple = (),
-    ghosts_pre=None, defer_reverse: bool = False,
+    well=None, well_meta: tuple = (), wellT=None, wellT_meta: tuple = (),
+    remoteT=None,
 ):
-    if on_tpu is None:
-        on_tpu = jax.default_backend() == "tpu"
-    """One shard's y = A_s @ x. Runs inside shard_map.
+    """One shard's Y = A_s @ X. Runs inside shard_map.
 
-    Vectors arrive in the 2-D lane layout x2: (col_pad/128, 128). The DIA
-    fast path consumes them directly (zero reshapes on the hot loop); the
-    ELL/general machinery works on a flat row-major view, whose reshape XLA
-    fuses into the consuming gathers. Output: (row_pad/128, 128).
-
-    ``ghosts_pre``/``defer_reverse`` serve matmat's BATCHED halo: the
-    caller gathers the whole nrhs block in one ppermute set and hands each
-    column its slice; symmetric reverse contributions are returned (not
-    scattered) so the caller can push the whole block back in one reverse
-    set. With defer_reverse the return is (y2, gz_or_None).
+    ``x2`` is the (col_pad/128, nrhs*128) block lane layout (nrhs = 1 is
+    the plain lane layout); the result is (row_pad/128, nrhs*128). DIA and
+    WELL local blocks apply the whole block in one pass over the matrix;
+    ELL and the remote/ghost terms work on the (col_pad, nrhs) column
+    view. The halo moves as one block: one ppermute set forward (and,
+    symmetric, one reverse set) whatever nrhs is. The local product never
+    reads the ghost buffer, so XLA can run the halo collectives
+    concurrently with it.
     """
-    x = x2.reshape(-1)
+    xc = block_to_columns(x2)  # (col_pad, nrhs)
+    nrhs = xc.shape[1]
     have_ghosts = plan.nghost_pad > 0 and len(plan.rounds) > 0
     if have_ghosts:
-        ghosts = (ghosts_pre if ghosts_pre is not None
-                  else _plan_gather(plan, x, tables, comm_axes))
-    # interior SpMV — independent of the halo, overlappable by XLA
+        ghosts = _plan_gather(plan, xc, tables, comm_axes)
+    y2 = yc = None
+    # interior product — independent of the halo
     if local_format == "dia":
-        from spmv_tpu.formats.dia import DiaMatrix
-        from spmv_tpu.ops.spmv_dia_pallas import (
-            dia_pallas_supported,
-            spmv_dia_pallas_2d,
-        )
-
         # symmetric: the DIA block stores offsets <= 0 (incl. diagonal) and
         # applies L + D + L^T of the LOCAL block itself — only the
         # remote/ghost transpose contributions remain for the reverse plan
-        dm = DiaMatrix(
-            data=dia_data, offsets=dia_offsets,
-            nrows=plan.nlocal_pad, ncols=plan.nlocal_pad,
-            symmetric=symmetric,
-        )
-        if on_tpu and dia_pallas_supported(dm):
-            y2 = spmv_dia_pallas_2d(dm, x2)
-        else:
-            from spmv_tpu.ops.spmv_dia import spmv_dia
-
-            y2 = spmv_dia(dm, x, method="xla").reshape(x2.shape)
-        y = None
+        y2 = dia_apply(dia_data, dia_offsets,
+                       x2.reshape(x2.shape[0], nrhs, 128),
+                       symmetric).reshape(row_pad // 128, -1)
     elif local_format == "well":
-        from spmv_tpu.formats.well import WellMatrix
-        from spmv_tpu.ops.spmv_well_pallas import spmv_well_pallas_2d
-
-        k_w, wseg_w, tg_w, paired_w = _well_meta4(well_meta)
-        wm = WellMatrix(
-            values=well[0], pos=well[1], w0=well[2],
-            paired=paired_w,
-            nrows=row_pad, ncols=plan.nlocal_pad,
-            wseg=wseg_w, tile_groups=tg_w, nseg=plan.nlocal_pad // 128,
-        )
-        # interpret mode on CPU = the reference-executor analogue
-        y2 = spmv_well_pallas_2d(wm, x2, interpret=not on_tpu)
+        y2 = well_apply_block(*well[:3], well_meta[2], x2)
         if len(well) > 3:
-            # compact-COO far remainder: touch far_nnz elements only
-            # (statically absent when the window split left nothing out)
-            fr_, fc_, fv_ = well[3:6]
-            far = jnp.zeros((row_pad,), x.dtype).at[fr_].add(
-                fv_ * jnp.take(x, fc_, axis=0), mode="promise_in_bounds"
-            )
-            y2 = y2 + far.reshape(y2.shape)
-        y = None
-    else:
-        y = jnp.einsum("rk,rk->r", lv, jnp.take(x, lci, axis=0))
-        y2 = None
-    if have_ghosts:
-        gy = jnp.einsum("rk,rk->r", rv, jnp.take(ghosts, rci, axis=0))
-        if y is None:
-            y2 = y2 + gy.reshape(x2.shape)
-        else:
-            y = y + gy
-    if symmetric:
-        if local_format == "well":
-            # dual-WELL: the local transpose term L^T x is a SECOND gather
-            # kernel over the pre-built transpose stack — no O(nnz) scatter
-            # (VERDICT r2 item 1; the ELL formulation below scatter-adds
-            # through the ~1 GB/s XLA path)
-            from spmv_tpu.formats.well import WellMatrix
-            from spmv_tpu.ops.spmv_well_pallas import spmv_well_pallas_2d
-
-            k_t, wseg_t, tg_t, paired_t = _well_meta4(wellT_meta)
-            wmT = WellMatrix(
-                values=wellT[0], pos=wellT[1], w0=wellT[2],
-                paired=paired_t,
-                nrows=row_pad, ncols=plan.nlocal_pad,
-                wseg=wseg_t, tile_groups=tg_t,
-                nseg=plan.nlocal_pad // 128,
-            )
-            y2 = y2 + spmv_well_pallas_2d(wmT, x2, interpret=not on_tpu)
-            y2 = y2 + (diag * x).reshape(y2.shape)
+            # compact-COO far remainder (statically absent when the
+            # window split left nothing out)
+            y2 = y2 + columns_to_block(_coo_apply(well[3:6], xc, row_pad))
+        if symmetric:
+            # dual-WELL: the local transpose term L^T x is a second gather
+            # over the pre-built transpose stack — no O(nnz) scatter
+            y2 = y2 + well_apply_block(*wellT[:3], wellT_meta[2], x2)
+            y2 = y2 + columns_to_block(diag[:, None] * xc)
             if len(wellT) > 3:
-                frT, fcT, fvT = wellT[3:6]
-                farT = jnp.zeros((row_pad,), x.dtype).at[frT].add(
-                    fvT * jnp.take(x, fcT, axis=0),
-                    mode="promise_in_bounds",
-                )
-                y2 = y2 + farT.reshape(y2.shape)
-        elif local_format != "dia":
-            y = y + diag * x
+                y2 = y2 + columns_to_block(
+                    _coo_apply(wellT[3:6], xc, row_pad))
+    else:
+        yc = jnp.einsum("rk,rkn->rn", lv, jnp.take(xc, lci, axis=0),
+                        precision=_HI)
+        if symmetric:
+            yc = yc + diag[:, None] * xc
             # transpose contributions to owned cols (deterministic scatter-add)
-            contrib = lv * x[:, None]
-            y = y.at[lci.reshape(-1)].add(
-                contrib.reshape(-1), mode="promise_in_bounds"
+            yc = yc.at[lci.reshape(-1)].add(
+                (lv[..., None] * xc[:, None, :]).reshape(-1, nrhs),
+                mode="promise_in_bounds",
             )
-        if have_ghosts:
-            # contributions to ghost columns -> reverse reduce-scatter to owners
-            gz = jnp.zeros((plan.nghost_pad,), dtype=x.dtype)
-            gcontrib = rv * x[:, None]
-            gz = gz.at[rci.reshape(-1)].add(
-                gcontrib.reshape(-1), mode="promise_in_bounds"
-            )
-            if defer_reverse:
-                out = y2 if y2 is not None else y.reshape(row_pad // 128, 128)
-                return out, gz
-            if y is None:
-                y = y2.reshape(-1)
-                y2 = None
-            y = _plan_scatter_add(plan, gz, y, tables, comm_axes)
-    out = y2 if y2 is not None else y.reshape(row_pad // 128, 128)
-    if defer_reverse:
-        return out, None
-    return out
+    if not have_ghosts:
+        return y2 if yc is None else columns_to_block(yc)
+    if yc is None:
+        yc = block_to_columns(y2)
+    yc = yc + jnp.einsum("rk,rkn->rn", rv, jnp.take(ghosts, rci, axis=0),
+                         precision=_HI)
+    if symmetric:
+        # contributions to ghost columns, one gather per ghost slot over
+        # the transposed remote block -> reverse reduce-scatter to owners
+        rtci, rtv = remoteT
+        gz = jnp.einsum("gk,gkn->gn", rtv, jnp.take(xc, rtci, axis=0),
+                        precision=_HI)
+        yc = _plan_scatter_add(plan, gz, yc, tables, comm_axes)
+    return columns_to_block(yc)
 
 
 def _assemble(
@@ -1545,37 +1208,25 @@ def _assemble(
         # is two gather kernels + diag axpy with no O(nnz) scatter (the
         # dual-WELL formulation; reference symmetric kernels use conflict
         # maps/atomics instead, spmv/openmp/csr_kernels.openmp.cpp:89-168).
-        while True:
-            wells, far_blocks = [], []
-            wellsT, farT_blocks = [], []
-            for s in shards:
-                near, far = split_window(s.local, tile_groups=tg,
-                                         wseg_cap=well_wseg_cap)
-                wells.append(_build_arrays(
-                    near, tg, well_max_k,
+        wells, far_blocks = [], []
+        wellsT, farT_blocks = [], []
+        for s in shards:
+            near, far = split_window(s.local, tile_groups=tg,
+                                     wseg_cap=well_wseg_cap)
+            wells.append(_build_arrays(
+                near, tg, well_max_k,
+                np.float64 if local_format == "well_ds" else dtype,
+            ))
+            far_blocks.append(far)
+            if symmetric:
+                lt = s.local.transpose()
+                nearT, farT = split_window(lt, tile_groups=tg,
+                                           wseg_cap=well_wseg_cap)
+                wellsT.append(_build_arrays(
+                    nearT, tg, well_max_k,
                     np.float64 if local_format == "well_ds" else dtype,
                 ))
-                far_blocks.append(far)
-                if symmetric:
-                    lt = s.local.transpose()
-                    nearT, farT = split_window(lt, tile_groups=tg,
-                                               wseg_cap=well_wseg_cap)
-                    wellsT.append(_build_arrays(
-                        nearT, tg, well_max_k,
-                        np.float64 if local_format == "well_ds" else dtype,
-                    ))
-                    farT_blocks.append(farT)
-            k_all = max(v.shape[0] for v, *_ in
-                        (wells + wellsT if symmetric else wells))
-            # kernel VMEM envelope: the gather temporaries scale with the
-            # tile's slot-row count b = K*tg; K*tg <= 1024 is the measured
-            # safe bound (K=89 at tg=16 blew the 16M scoped-vmem limit on
-            # a v5e AOT compile; K<=64 at tg=16 is the proven envelope).
-            # High-K matrices (e.g. AMG Galerkin coarse grids) repack at a
-            # smaller tile until they fit.
-            if k_all * tg <= 1024 or tg <= 1:
-                break
-            tg = max(tg // 2, 1)
+                farT_blocks.append(farT)
         k_w = max(v.shape[0] for v, *_ in wells)
         wseg_w = max(wseg for _, _, _, wseg, _, _ in wells)
         # one padded geometry for every shard: groups cover rows AND every
@@ -1780,9 +1431,8 @@ def _assemble(
         # far remainder of the window split. well_ds keeps it in the local
         # ELL arrays (the DS accumulation chain works column-wise); plain
         # well stores it as compact COO so the device term touches only
-        # far_nnz elements (an (R, K) ELL rectangle through the XLA gather
-        # costs ~R*K elements even when the far block is EMPTY — measured
-        # 9x end-to-end slowdown before this split).
+        # far_nnz elements (an (R, K) ELL rectangle would gather R*K
+        # elements even when the far block is EMPTY).
         far_max = max((b.nnz for b in far_blocks), default=0)
         if local_format == "well_ds":
             from spmv_tpu.ds import ds_from_f64
@@ -1811,25 +1461,32 @@ def _assemble(
                     # padding slots stay (row 0, col 0, val 0): adds 0.0
     else:
         lci, lv = _stack_ell([s.local for s in shards], r, kl, dtype=dtype)
-    remoteT_ci = remoteT_vh = remoteT_vl = None
     if local_format in ("dia_ds", "well_ds"):
         from spmv_tpu.ds import ds_from_f64
 
         rci, rv64 = _stack_ell([s.remote for s in shards], r, kr,
                                dtype=np.float64)
         rv, remote_lo = ds_from_f64(rv64)
-        if symmetric and local_format == "well_ds" and plan.nghost_pad > 0:
-            # transposed-remote ELL over ghost slots: the symmetric DS
-            # reverse computes per-ghost contributions with error-free
-            # slot-wise chains (no scatter), see matvec_ds/_plan_scatter_add_ds
-            remT_blocks = [s.remote.transpose() for s in shards]
-            kgT = max(max((int(b.row_nnz().max()) if b.nnz else 0)
-                          for b in remT_blocks), 1)
-            remoteT_ci, rT64 = _stack_ell(remT_blocks, plan.nghost_pad, kgT,
-                                          dtype=np.float64)
-            remoteT_vh, remoteT_vl = ds_from_f64(rT64)
     else:
         rci, rv = _stack_ell([s.remote for s in shards], r, kr, dtype=dtype)
+    remoteT_ci = remoteT_v = remoteT_vl = None
+    if symmetric and plan.nghost_pad > 0:
+        # transposed-remote ELL over ghost slots: the symmetric apply's
+        # contributions to ghost columns are one gather per ghost slot. A
+        # scatter-add over every (row, slot) of the remote block instead
+        # piles the padding slots' adds onto ghost 0, which serialises on
+        # a GPU. DS keeps error-free slot-wise chains (no rounding scatter,
+        # see matvec_ds / _plan_scatter_add_ds).
+        remT_blocks = [s.remote.transpose() for s in shards]
+        kgT = max(max((int(b.row_nnz().max()) if b.nnz else 0)
+                      for b in remT_blocks), 1)
+        if local_format == "well_ds":
+            remoteT_ci, rT64 = _stack_ell(remT_blocks, plan.nghost_pad, kgT,
+                                          dtype=np.float64)
+            remoteT_v, remoteT_vl = ds_from_f64(rT64)
+        else:
+            remoteT_ci, remoteT_v = _stack_ell(remT_blocks, plan.nghost_pad,
+                                               kgT, dtype=rv.dtype)
 
     diag = None
     if symmetric:
@@ -1949,8 +1606,8 @@ def _assemble(
                      else put(diag_lo, P(axis_names, None))),
         remoteT_colind=(None if remoteT_ci is None
                         else put(remoteT_ci, mspec)),
-        remoteT_vals=(None if remoteT_vh is None
-                      else put(remoteT_vh, mspec)),
+        remoteT_vals=(None if remoteT_v is None
+                      else put(remoteT_v, mspec)),
         remoteT_vals_lo=(None if remoteT_vl is None
                          else put(remoteT_vl, mspec)),
     )
@@ -1970,13 +1627,11 @@ def _hub_split(a: CSRHost, hub_cap):
 
     ``hub_cap="auto"`` picks the power-of-two cap minimizing the RUNTIME
     touched-element count — nrows*cap padded body-ELL gathers plus
-    2*hub_nnz compact hub gather+scatter elements (every XLA
-    gather/scatter costs ~7 ns/element on chip regardless of shape, the
-    measured floor) — and skips the split entirely for near-uniform
-    degree distributions (kmax <= max(64, 4*p99)). The reference's CSR
-    row loop is skew-indifferent (reference spmv/csr_kernels.cpp:42-50);
-    this is the TPU-native equivalent — row-uniform formats for the
-    body, a compact gather-side term for the hubs."""
+    2*hub_nnz compact hub gather+scatter elements — and skips the split
+    entirely for near-uniform degree distributions (kmax <= max(64,
+    4*p99)). The reference's CSR row loop is skew-indifferent (reference
+    spmv/csr_kernels.cpp:42-50); here the body keeps its row-uniform
+    format and the hubs get a compact gather-side term."""
     if a.nnz == 0:
         return a, None
     d = a.row_nnz()
@@ -2014,11 +1669,10 @@ def _hub_split(a: CSRHost, hub_cap):
 def _attach_hubs(A: DistMatrix, hubs, dtype) -> DistMatrix:
     """Pack the hub COO into per-shard COMPACT (F,) entry arrays over
     PADDED-GLOBAL columns (shard*col_pad + local col) and attach them to
-    an assembled DistMatrix. Per-entry compactness is the point: XLA
-    gathers/scatters cost ~7 ns per ELEMENT regardless of shape (the
-    measured chip floor), so the apply touches exactly hub_nnz elements
-    each way (_hub_apply) — a padded (H, Kmax) layout measured 60x more
-    elements on the power-law corpus matrix."""
+    an assembled DistMatrix. Per-entry compactness is the point: the
+    apply touches exactly hub_nnz elements each way (_hub_apply) — a
+    padded (H, Kmax) layout holds 60x more elements on the power-law
+    corpus matrix."""
     rows_g, cols_g, vals = hubs
     nd = A.n_devices
     cp = A.col_pad
@@ -2074,27 +1728,23 @@ def select_local_format(
     compile-time format heuristic, reference spmv/Matrix.cpp:61-71 — which
     always picked CSR; here the choice is real):
 
-      dia  — banded/stencil operators (few distinct diagonals): the
-             zero-index-traffic Pallas DIA kernel;
+      dia  — banded/stencil operators (few distinct diagonals): shifted
+             multiply-adds with no index traffic;
       well — general sparsity with window-local columns: the windowed
-             gather-ELL Pallas kernel (~100x the XLA gather path on chip);
-             symmetric matrices use the dual-WELL form (L and a pre-built
-             L^T as two gather stacks — no scatters);
-      ell  — fallback (XLA gather; also the symmetric-f64 path).
+             gather-ELL layout; symmetric matrices use the dual-WELL form
+             (L and a pre-built L^T as two gather stacks — no scatters);
+      ell  — fallback (plain gather; also the symmetric-f64 path).
 
     float64 inputs auto-route to the double-single variants (``dia_ds`` /
-    ``well_ds``): the reference is double-throughout
-    (reference spmv/Matrix.cpp:565-566) and the XLA-f64 emulation path runs
-    at ~13% of roofline, while DS delivers the kappa * 2^-48 accuracy
-    envelope (BENCH_NOTES) at fp32-class speed. Symmetric f64 GENERAL
-    matrices route to the dual-WELL DS form (error-free everywhere incl.
-    the reverse exchange); symmetric f64 BANDED stays on the XLA-f64 DIA
-    path (no symmetric dia_ds variant yet).
+    ``well_ds``), which give the kappa * 2^-48 accuracy envelope from
+    float32 storage and arithmetic. Symmetric f64 GENERAL matrices route
+    to the dual-WELL DS form (error-free everywhere incl. the reverse
+    exchange); symmetric f64 BANDED stays on the native-f64 DIA path (no
+    symmetric dia_ds variant yet).
 
     The WELL gate is format-size-aware: low-occupancy packings whose
-    stored bytes exceed ~4x the ELL footprint fall back to ELL with a
-    warning (the kernel would still win on time, but a 10M-row 2%-occupancy
-    rectangle can exceed HBM).
+    stored bytes exceed ~8x the ELL footprint fall back to ELL with a
+    warning (a 10M-row 2%-occupancy rectangle can exceed device memory).
     """
     want_ds = dtype is not None and np.dtype(dtype) == np.float64
     if dtype is None and a.values.dtype == np.float64:
@@ -2133,9 +1783,8 @@ def select_local_format(
             well_bytes = g_ * k_ * 128 * (itemsize + 2)  # values + int16 pos
             kmax = int(a.row_nnz().max())
             ell_bytes = a.nrows * kmax * (itemsize + 4)  # values + int32 ind
-            # the kernel is ~100x the XLA gather, so trade memory for speed
-            # generously — but never past 8x ELL or an HBM-scale absolute.
-            # K must also fit the conversion's default slot cap (a single
+            # trade memory for window locality, but never past 8x ELL or
+            # a device-memory-scale absolute. K must also fit the conversion's default slot cap (a single
             # scattered row group past max_k would make csr_to_well raise)
             if k_ <= 64 and well_bytes <= 8 * ell_bytes and well_bytes <= 4e9:
                 return "well_ds" if want_ds else "well"
@@ -2158,19 +1807,6 @@ def _resolve_mesh(mesh, n_devices, axis_name):
         devs = jax.devices()[: (n_devices or len(jax.devices()))]
         mesh = Mesh(np.array(devs), (axis_name,))
     return mesh
-
-
-def _dia_row_align(local_format: str, row_align: int, max_rows_per_shard: int) -> int:
-    # distributed vectors live in the (rows, 128) lane layout
-    row_align = max(row_align, 128)
-    if local_format in ("dia", "dia_ds"):
-        # Pallas DIA kernel wants 128-lane rows and >= 8*128 elements; very
-        # large shards additionally align to a 1024-lane-row multiple so the
-        # kernel's tile picker always finds a divisor (see csr_to_dia)
-        row_align = max(row_align, 1024)
-        if max_rows_per_shard > 1_000_000:
-            row_align = max(row_align, 1024 * 128)
-    return row_align
 
 
 def _warn_silent_downcast(values_dtype, dtype, local_format: str) -> None:
@@ -2226,9 +1862,9 @@ def build_dist_matrix(
 ) -> DistMatrix:
     """Assemble a DistMatrix from a global host CSR.
 
-    ``well_wseg_cap`` bounds the WELL window (in 128-wide segments, so the
-    kernel's per-tile x-window DMA and VMEM footprint); entries outside a
-    tile's best window become the "far" remainder on the XLA ELL path.
+    ``well_wseg_cap`` bounds the WELL window (in 128-wide segments);
+    entries outside a tile's best window become the "far" remainder,
+    applied as compact COO.
 
     ``hub_cap`` (degree-skew safety): rows with more than this many
     nonzeros leave the row-uniform local formats into a dedicated hub
@@ -2244,7 +1880,7 @@ def build_dist_matrix(
     instead (observed: a 16k-nnz hub row drove a 33 GB colind
     allocation before this existed).
 
-    The TPU-native replacement for Matrix::create_matrix's distributed
+    The JAX counterpart of Matrix::create_matrix's distributed
     assembly (reference spmv/Matrix.cpp:164-480): partition rows (and, for
     rectangular operators, columns), classify local/remote(/diagonal)
     entries, discover ghosts, compile the comm plan, and upload stacked ELL
@@ -2273,7 +1909,7 @@ def build_dist_matrix(
                          "(no symmetric lower-triangle variant yet)")
     mesh = _resolve_mesh(mesh, n_devices, axis_name)
     nd = int(np.prod(list(mesh.shape.values())))
-    row_align = _dia_row_align(local_format, row_align, -(-a.nrows // nd))
+    row_align = max(row_align, 128)  # the (rows, 128) lane layout
 
     shards = partition_csr(a, nd, symmetric=symmetric)
     col_ranges = owner_ranges(a.ncols, nd) if a.nrows != a.ncols else owner_ranges(a.nrows, nd)
@@ -2324,7 +1960,7 @@ def build_dist_matrix_from_shards(
 
     ``triplets[s] = (rows, cols, vals)`` uses GLOBAL indices; rows outside
     shard s's owned range are ROW GHOSTS and are redistributed to their
-    owners host-side (the TPU-native replacement for the reference's
+    owners host-side (the counterpart of the reference's
     ghost-row shipment over a dist-graph communicator,
     reference spmv/Matrix.cpp:164-292; ``row_ghosts`` in spmv/Matrix.h:97).
     Contributions to the same entry from different shards SUM — overlapping
@@ -2347,7 +1983,7 @@ def build_dist_matrix_from_shards(
     nd = int(np.prod(list(mesh.shape.values())))
     if nd != len(triplets):
         raise ValueError(f"{len(triplets)} triplet shards for a {nd}-device mesh")
-    row_align = _dia_row_align(local_format, row_align, -(-nrows_global // nd))
+    row_align = max(row_align, 128)  # the (rows, 128) lane layout
 
     row_ranges = owner_ranges(nrows_global, nd)
     col_ranges = (row_ranges if nrows_global == ncols_global

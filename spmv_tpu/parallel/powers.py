@@ -31,7 +31,7 @@ How it works (per shard):
    v_0..v_s is exact. Each shard simply never reads the contaminated
    tail region it returns to nobody.
 
-The validity argument is the standard MPK one; what TPU adds is that the
+The validity argument is the standard MPK one; what JAX adds is that the
 whole thing is one compiled SPMD program — the deep halo_gather is a
 static ppermute schedule XLA can overlap with the first local apply, and
 the local applies are gather+multiply-reduce ops with no collectives at
@@ -43,9 +43,8 @@ banded/stencil operators grow ghosts LINEARLY in s (s * bandwidth rows
 per boundary), which is the sweet spot. General scrambled sparsity can
 blow the ghost set up exponentially; ``plan.nghost_pad`` (and
 ``powers_ghost_stats``) make the cost visible before you pay it — RCM
-reordering (``spmv_tpu.reorder``) localizes the pattern first. On this
-1-chip environment the multi-chip wall-clock win is unmeasurable; the
-collective counts are the verifiable contract.
+reordering (``spmv_tpu.reorder``) localizes the pattern first. The
+collective counts are the contract the tests verify.
 """
 from __future__ import annotations
 
@@ -57,6 +56,7 @@ import numpy as np
 from jax.sharding import PartitionSpec as P
 
 from spmv_tpu.formats.csr import CSRHost
+from spmv_tpu.ops.spmv_dia import dia_apply
 from spmv_tpu.parallel.comm_plan import (
     CommPlan,
     CommPlan2,
@@ -83,7 +83,7 @@ class PowersPlan:
     chip-speed path): the extended window is the CONTIGUOUS global range
     around the owned block under the affine map pos(g) = gl_pad + g - r0,
     which preserves every diagonal offset exactly, so the extended block
-    is one per-shard ``DiaMatrix`` applied by the Pallas DIA kernel.
+    is one per-shard ``DiaMatrix`` applied by the DIA apply (ops.spmv_dia).
       dia_data: (D, dia_rows/128, K*128) row-interleaved lane layout
       ghost_pos: (D, nghost_pad) — xe positions the sorted ghost buffer
       scatters into (OOB padding slots drop)
@@ -163,8 +163,8 @@ def build_powers_plan(a: CSRHost, A, s: int,
     as an argument.
 
     ``local_format``: 'ell' (any sparsity, XLA gather applies), 'dia'
-    (banded operators — the extended block rides the Pallas DIA kernel at
-    chip speed; raises if the union of diagonal offsets exceeds 64), or
+    (banded operators — the extended block rides the DIA apply; raises if
+    the union of diagonal offsets exceeds 64), or
     'auto' (default: 'dia' when the distributed operator itself uses DIA
     local blocks and the extended window stays banded, else 'ell')."""
     if a.nrows != a.ncols:
@@ -286,12 +286,9 @@ def _build_dia_powers(a, A, s, ranges, ghost_lists, plan, col_pad, dtype,
         gl_needed.append(int(r0 - g.min()) if len(g) and g.min() < r0 else 0)
         gr = int(g.max() + 1 - r1) if len(g) and g.max() >= r1 else 0
         right_span.append(r1 - r0 + gr)
-    # 1024-row alignment (8 sublanes x 128 lanes): dia_pallas_supported
-    # gates on nrows_pad % 1024 — 128-only alignment would silently drop
-    # every multi-shard geometry to the XLA apply
+    # 128-row alignment: the window is applied in the (rows, 128) lane layout
     gl_pad = _round_up(max(gl_needed), 128)
-    L = _round_up(gl_pad + _round_up(max(max(right_span), col_pad), 128),
-                  8 * 128)
+    L = gl_pad + _round_up(max(max(right_span), col_pad), 128)
 
     # entry lists in window coordinates; the affine pos(g) = gl_pad + g - r0
     # preserves diagonal offsets EXACTLY (pcol - prow = gcol - grow)
@@ -446,7 +443,6 @@ def _powers_basis(pp: PowersPlan, x: jax.Array, recur) -> jax.Array:
     tables = ((plan.ici_send_idx, plan.ici_recv_pos,
                plan.dcn_send_idx, plan.dcn_recv_pos)
               if two_tier else (plan.send_idx, plan.recv_pos))
-    on_tpu = pp.mesh.devices.flat[0].platform == "tpu"
 
     def gather(xf, tabs):
         if two_tier:
@@ -457,12 +453,6 @@ def _powers_basis(pp: PowersPlan, x: jax.Array, recur) -> jax.Array:
                            plan.n_devices, plan.nghost_pad, axes[0])
 
     if pp.local_format == "dia":
-        from spmv_tpu.formats.dia import DiaMatrix
-        from spmv_tpu.ops.spmv_dia_pallas import (
-            dia_pallas_supported,
-            spmv_dia_pallas_2d,
-        )
-
         def per_shard_dia(x_s, dd, gpos, nloc, *tabs):
             dd, gpos, nloc = dd[0], gpos[0], nloc[0]
             tabs = tuple(t[0] for t in tabs)
@@ -477,17 +467,10 @@ def _powers_basis(pp: PowersPlan, x: jax.Array, recur) -> jax.Array:
             xe = jax.lax.dynamic_update_slice(xe, xf, (pp.gl_pad,))
             if plan.nghost_pad:
                 xe = xe.at[gpos].set(g, mode="drop")
-            dm = DiaMatrix(data=dd, offsets=pp.dia_offsets,
-                           nrows=pp.dia_rows, ncols=pp.dia_rows)
-            if on_tpu and dia_pallas_supported(dm):
-                def apply_op(v):
-                    return spmv_dia_pallas_2d(
-                        dm, v.reshape(-1, 128)).reshape(-1)
-            else:
-                from spmv_tpu.ops.spmv_dia import spmv_dia
+            def apply_op(v):
+                return dia_apply(dd, pp.dia_offsets,
+                                 v.reshape(-1, 1, 128)).reshape(-1)
 
-                def apply_op(v):
-                    return spmv_dia(dm, v, method="xla")
             vs = recur(xe, apply_op)
             own = (jnp.arange(xf.shape[0]) < nloc).astype(xf.dtype)
             V = jnp.stack([
@@ -512,8 +495,9 @@ def _powers_basis(pp: PowersPlan, x: jax.Array, recur) -> jax.Array:
         xe = jnp.concatenate([xf, g])
 
         def ell(v):
-            # gather + multiply-reduce: VPU ops, exact at storage precision
-            return jnp.einsum("rk,rk->r", vals, jnp.take(v, ci, axis=0))
+            # gather + multiply-reduce, exact at storage precision
+            return jnp.einsum("rk,rk->r", vals, jnp.take(v, ci, axis=0),
+                              precision=jax.lax.Precision.HIGHEST)
 
         vs = recur(xe, ell)
         V = jnp.stack([v[: xf.shape[0]] for v in vs])  # owned slices

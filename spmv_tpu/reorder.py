@@ -1,12 +1,12 @@
 """Bandwidth-reduction reordering (reverse Cuthill-McKee) + permutation.
 
 The reference runs arbitrary CSR through vendor kernels (cuSPARSE,
-reference spmv/cuda/csr_kernels.cuda.cu:106-151) and never reorders. On TPU
-the fast SpMV formulations are window-local (DIA diagonals, the windowed
-gather-ELL kernel), so concentrating nonzeros near the diagonal is a
+reference spmv/cuda/csr_kernels.cuda.cu:106-151) and never reorders. Here
+the compact SpMV formulations are window-local (DIA diagonals, the windowed
+gather-ELL layout), so concentrating nonzeros near the diagonal is a
 first-class assembly step: RCM here typically shrinks an unstructured
 matrix's bandwidth by orders of magnitude, which directly shrinks the
-kernels' x-windows (and for near-banded matrices unlocks the DIA path).
+x-windows (and for near-banded matrices unlocks the DIA path).
 
 All host-side. Two tiers with BITWISE-identical outputs (regression-tested
 in tests/test_reorder.py): a native C++ pipeline (spmv_tpu.native — counting
@@ -168,7 +168,7 @@ def permute_symmetric(a: CSRHost, order: np.ndarray,
 def bandwidth_quantile(a: CSRHost, q: float = 90.0,
                        sample: int = 2_000_000) -> float:
     """q-th percentile of |col - row| over (sampled) entries — the
-    window-locality figure the TPU formats care about (a handful of
+    window-locality figure the DIA/WELL formats care about (a handful of
     outliers belong in far/hub side terms; the BULK must be near the
     diagonal, which max-bandwidth cannot see)."""
     if a.nnz == 0:

@@ -9,7 +9,7 @@ aggregation-based AMG hierarchy used as a preconditioner for ``cg``,
 turning the O(sqrt(kappa)) iteration count of plain CG on a Laplacian
 into an O(1)-ish count independent of resolution.
 
-TPU-native design decisions:
+Design decisions:
 
 - **Shard-local aggregation** (decoupled): aggregates never cross the 1-D
   row partition, so restriction and prolongation are COMM-FREE per-shard
@@ -19,8 +19,8 @@ TPU-native design decisions:
   aggregate->owner map coincide with ``owner_ranges`` by construction.
 - **Gather-only transfer operators**: restriction sums each aggregate's
   members via an (nc_pad, S) gather table (S = max aggregate size) —
-  S sequential gathers instead of one scatter-add, because TPU gathers
-  are fast and XLA scatters are not; prolongation is a single gather.
+  S sequential gathers instead of one scatter-add (deterministic, no
+  atomics); prolongation is a single gather.
 - **Chebyshev-Jacobi smoothing** (solvers/chebyshev.py): zero reductions
   per sweep — on a distributed mesh the smoother's only communication is
   the operator's own halo exchange. Spectrum bound per level is the
@@ -727,7 +727,7 @@ def amg_setup(
     ``aggregate="interval"`` (for BANDED / RCM-ordered operators): each
     shard aggregates ``interval_size`` consecutive rows instead of graph
     matching. Index-contiguous aggregates keep every Galerkin coarse
-    operator banded (DIA-packable — the Pallas chip path), and the
+    operator banded (DIA-packable — the stencil fast path), and the
     transfers become pure reshape ops: P0 = repeat, P0^T = interval block
     sums, with the prolongator smoothing factor (I - omega_p D^-1 A)
     applied implicitly through the level's own kernel. Nothing

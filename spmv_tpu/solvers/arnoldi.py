@@ -7,14 +7,14 @@ stationary-iteration safety, pseudo-timestep choices, and "is my
 preconditioned spectrum clustered?" checks. An m-step Arnoldi process
 gives the leading Ritz values for m matvecs.
 
-Architecture split, chosen for the TPU:
+Architecture split:
 - The FACTORIZATION (all the matvecs and the CGS2 orthogonalization — the
   only part that touches the operator) is pure JAX under ``lax.scan``:
   batched-matmul reorthogonalization like solvers/gmres.py, runs on any
   mesh, jittable (``arnoldi_factorization``).
 - The EXTRACTION (eigendecomposition of the m x m Hessenberg) is HOST
-  numpy: XLA:TPU has no nonsymmetric eig lowering, and an m<=128 dense eig
-  is microseconds of host work — shipping it through the compiler buys
+  numpy: XLA has no nonsymmetric eig lowering on every backend, and an
+  m<=128 dense eig is microseconds of host work — shipping it through the compiler buys
   nothing. ``arnoldi_ritz`` wraps both.
 
 Ritz residual bounds are the standard |h_{m+1,m}| * |last eigvec
@@ -29,8 +29,10 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
+from spmv_tpu.utils.precision import highest_precision
 
 
+@highest_precision
 def arnoldi_factorization(
     matvec: Callable[[jax.Array], jax.Array],
     v0: jax.Array,

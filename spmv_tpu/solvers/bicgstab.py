@@ -30,6 +30,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -50,6 +51,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def bicgstab(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

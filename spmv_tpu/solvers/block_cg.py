@@ -1,11 +1,11 @@
 """Block CG (O'Leary 1980) — solve A X = B for nrhs right-hand sides at once.
 
-Why on TPU: SpMV is matrix-traffic-bound, so solving nrhs systems one at a
-time re-streams the matrix nrhs times per "iteration row"; block CG applies
-A to the whole block (``ops/spmm_dia_pallas`` streams it ONCE) and shares
-Krylov information between columns — typically FEWER iterations than the
-worst single column needs, with all the block linear algebra as small
-(nrhs x nrhs) dense ops the MXU eats for free. The reference has neither
+Why: SpMV is matrix-traffic-bound, so solving nrhs systems one at a time
+re-reads the matrix nrhs times per "iteration row"; block CG applies A to
+the whole block (``DistMatrix.matmat`` / ``ops.spmv_dia.spmm_dia_2d`` read
+it ONCE) and shares Krylov information between columns — typically FEWER
+iterations than the worst single column needs, with all the block linear
+algebra as small (nrhs x nrhs) dense ops. The reference has neither
 multi-RHS application nor block solvers (one vector everywhere,
 reference spmv/cg.cpp).
 
@@ -25,6 +25,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import HIGHEST, highest_precision
 
 LANES = 128
 
@@ -49,6 +50,7 @@ def _as3(v, nrhs):
     return v.reshape(v.shape[0], nrhs, LANES)
 
 
+@highest_precision
 def block_cg(
     matmat: Callable[[jax.Array], jax.Array],
     b: jax.Array,
@@ -60,7 +62,7 @@ def block_cg(
 ) -> BlockCGResult:
     """Solve SPD A X = B. ``b`` is (rows, nrhs*128) in the SpMM lane layout
     (zero padding entries); ``matmat`` maps that layout to itself (e.g. a
-    closure over ``_spmm_dia_pallas_2d``). Stops when EVERY column's
+    closure over ``ops.spmv_dia.spmm_dia_2d``). Stops when EVERY column's
     relative residual is below ``rtol``.
 
     ``independent=True`` runs nrhs SIMULTANEOUS single-vector CGs (diagonal
@@ -190,46 +192,22 @@ def _simultaneous_cg(matmat, b, nrhs, x0, kmax, rtol, rdtype, tiny):
     )
 
 
-def block_cg_dia(a, B, kmax: int = 100, rtol: float = 1e-10,
-                 interpret: bool = False) -> tuple:
+def block_cg_dia(a, B, kmax: int = 100, rtol: float = 1e-10) -> tuple:
     """Convenience wiring for a DiaMatrix: B is (n, nrhs) columns; returns
-    (X (n, nrhs), BlockCGResult). Uses the multi-RHS SpMM kernel so each
-    block iteration streams the matrix once."""
-    import numpy as np
-
-    from spmv_tpu.ops.spmm_dia_pallas import (
-        _spmm_dia_pallas_2d,
+    (X (n, nrhs), BlockCGResult). Each block iteration reads the matrix
+    once for all columns (ops.spmv_dia.spmm_dia_2d)."""
+    from spmv_tpu.ops.spmv_dia import (
+        spmm_dia_2d,
         spmm_from_layout,
         spmm_to_layout,
     )
-    from spmv_tpu.ops.spmv_dia_pallas import (
-        _pick_tile_rows,
-        _spmv_dia_sym_pallas_2d,
-        dia_halo_rows,
-    )
 
     n, nrhs = B.shape
-    hr = dia_halo_rows(a)
-    tr = _pick_tile_rows(
-        a.nrows_pad // LANES, len(a.offsets), hr, a.data.dtype.itemsize,
-        sym=a.symmetric, nrhs=nrhs,
-    )
-    if tr == 0:
-        raise ValueError("no valid tile; check spmm_dia_supported first")
-
-    if a.symmetric:
-        def matmat(x2):
-            return _spmv_dia_sym_pallas_2d(a.data, x2, a.offsets, tr, hr,
-                                           nrhs=nrhs, interpret=interpret)
-    else:
-        def matmat(x2):
-            return _spmm_dia_pallas_2d(a.data, x2, a.offsets, tr, hr, nrhs,
-                                       interpret=interpret)
-
     b2 = spmm_to_layout(a, jnp.asarray(B))
     res = jax.jit(
-        lambda b_: block_cg(matmat, b_, nrhs, kmax=kmax, rtol=rtol)
-    )(b2)
+        lambda a_, b_: block_cg(lambda x2: spmm_dia_2d(a_, x2), b_, nrhs,
+                                kmax=kmax, rtol=rtol)
+    )(a, b2)
     X = spmm_from_layout(res.x, nrhs)[:n]
     return X, res
 
@@ -241,7 +219,6 @@ def block_cg_refined(
     max_outer: int = 10,
     inner_kmax: int = 400,
     inner_rtol: float = 1e-4,
-    interpret: bool = False,
     inner_solver: str = "cg",
 ):
     """f64-class multi-RHS solves at fp32 block speed.
@@ -253,13 +230,13 @@ def block_cg_refined(
     accuracy to the kappa*2^-48 floor, and restarting the inner block CG
     every outer pass resets the decayed Krylov block, so each pass
     contracts by roughly its achievable inner tolerance. All hot compute is
-    the fp32 multi-RHS SpMM (matrix streamed once per inner iteration) and
-    the DS residual SpMVs (nrhs per outer pass).
+    the fp32 multi-RHS SpMM (matrix read once per inner iteration) and the
+    DS block residual (both planes read once per outer pass).
 
     ``a``: host CSRHost (banded/DIA-convertible, SPD); ``B``: (n, nrhs).
     For GENERAL sparsity use ``block_cg_refined_dist(...,
     local_format="well")`` (works at n_devices=1 too) — it routes
-    the block applies through the WELL SpMM kernels.
+    the block applies through the WELL block gather.
     Returns (X (n, nrhs) float64, outer_iterations, inner_iterations,
     final per-column TRUE residual norms).
     """
@@ -267,29 +244,18 @@ def block_cg_refined(
 
     from spmv_tpu.ds import ds_add, ds_from_f64, ds_to_f64
     from spmv_tpu.formats.dia import csr_to_dia
-    from spmv_tpu.ops.spmm_dia_pallas import (
-        _pick_tile_rows_mrhs,
-        _spmm_dia_pallas_2d,
+    from spmv_tpu.ops.spmv_dia import (
+        spmm_dia_2d,
         spmm_from_layout,
         spmm_to_layout,
+        spmv_dia_2d,
     )
-    from spmv_tpu.ops.spmv_dia_ds_pallas import (
-        csr_to_dia_ds,
-        spmm_dia_ds_pallas_2d,
-        spmm_dia_ds_supported,
-        spmm_dia_ds_xla,
-    )
-    from spmv_tpu.ops.spmv_dia_pallas import dia_halo_rows
+    from spmv_tpu.ops.spmv_dia_ds import csr_to_dia_ds, spmm_dia_ds_2d
 
     n, nrhs = B.shape
-    d32 = csr_to_dia(a, row_align=1024, dtype=np.float32)
-    dds = csr_to_dia_ds(a, row_align=1024)
+    d32 = csr_to_dia(a, dtype=np.float32)
+    dds = csr_to_dia_ds(a)
     npad = dds.nrows_pad
-    on_tpu = jax.default_backend() == "tpu" and not interpret
-    hr = dia_halo_rows(d32)
-    tr = _pick_tile_rows_mrhs(npad // LANES, len(d32.offsets), hr, 4, nrhs)
-    if tr == 0:
-        raise ValueError("no valid SpMM tile for this size/nrhs")
 
     bh, bl = ds_from_f64(
         np.pad(np.asarray(B, np.float64), ((0, npad - n), (0, 0)))
@@ -303,25 +269,19 @@ def block_cg_refined(
 
     @jax.jit
     def residual_blk(dds_, bh_, bl_, xh_, xl_):
-        # BLOCK DS residual: both matrix planes streamed ONCE for all
-        # columns (the per-column loop this replaces streamed them nrhs
-        # times per outer pass)
-        if on_tpu and spmm_dia_ds_supported(dds_, nrhs):
-            yh, yl = spmm_dia_ds_pallas_2d(dds_, xh_, xl_, nrhs)
-        else:
-            yh, yl = spmm_dia_ds_xla(dds_, xh_, xl_, nrhs)
+        # BLOCK DS residual: both matrix planes read once for all columns
+        yh, yl = spmm_dia_ds_2d(dds_, xh_, xl_)
         rh, rl = ds_add(bh_, bl_, -yh, -yl)
         v3 = col3(rh)
         norms = jnp.sqrt(jnp.einsum("rnc,rnc->n", v3, v3,
-                                    preferred_element_type=jnp.float32))
+                                    preferred_element_type=jnp.float32,
+                                    precision=HIGHEST))
         return rh, rl, norms
 
     cheb = None
     if inner_solver == "chebyshev":
         # reduction-free inner sweeps (solvers/chebyshev.py): fixed
         # iteration count from Lanczos spectrum bounds, zero dots
-        from spmv_tpu.ops.spmv_dia_pallas import spmv_dia_pallas_2d
-
         from spmv_tpu.solvers.chebyshev import (
             chebyshev_adaptive,
             chebyshev_bounds,
@@ -332,8 +292,7 @@ def block_cg_refined(
         v0h[:n] = np.random.default_rng(0).standard_normal(n)
         lo, hi = jax.jit(
             lambda d_, v: chebyshev_bounds(
-                lambda u: spmv_dia_pallas_2d(d_, u, interpret=interpret),
-                v, m=48)
+                lambda u: spmv_dia_2d(d_, u), v, m=48)
         )(d32, jnp.asarray(v0h.reshape(-1, LANES)))
         lo_f, hi_f = float(lo), float(hi)
         cheb = (lo_f, hi_f, min(
@@ -346,8 +305,7 @@ def block_cg_refined(
         r2 = (col3(rh_) * scale[None, :, None]).reshape(rh_.shape)
 
         def matmat(x2):
-            return _spmm_dia_pallas_2d(d32_.data, x2, d32_.offsets, tr, hr,
-                                       nrhs, interpret=interpret)
+            return spmm_dia_2d(d32_, x2)
 
         if cheb is not None:
             # adaptive sweeps (1 reduction per 16 steps): corrects the
@@ -421,7 +379,7 @@ def block_cg_refined_dist(
     the kappa * 2^-48 envelope.
 
     ``local_format``: "dia" (banded operators; the DS DIA SpMM) or "well"
-    (GENERAL sparsity; the DS WELL SpMM, ops/spmm_well_pallas — RCM
+    (GENERAL sparsity; the DS WELL block gather, ops/spmv_well — RCM
     reordering first keeps the window split tight).
 
     ``a``: global host CSRHost (SPD); ``B``: (n, nrhs) float64. Returns
@@ -456,7 +414,8 @@ def block_cg_refined_dist(
         rh, rl = ds_add(bh_, bl_, -yh, -yl)
         v3 = col3(rh)
         norms = jnp.sqrt(jnp.einsum("rnc,rnc->n", v3, v3,
-                                    preferred_element_type=jnp.float32))
+                                    preferred_element_type=jnp.float32,
+                                    precision=HIGHEST))
         return rh, rl, norms
 
     cheb = None

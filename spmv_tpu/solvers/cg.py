@@ -26,6 +26,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -46,6 +47,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def cg(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,
@@ -148,6 +150,7 @@ def _body(state, matvec, dot, precond, preconditioner):
     return (k + 1, x, r, p, rho_new, rnorm2_new)
 
 
+@highest_precision
 def cg_residual_history(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,
@@ -182,6 +185,7 @@ def cg_residual_history(
     return x, hist
 
 
+@highest_precision
 def cg_pipelined(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

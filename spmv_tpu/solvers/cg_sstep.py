@@ -11,8 +11,8 @@ The communication ladder in this library:
   basis-conditioning treatment follows the communication-avoiding Krylov
   line of Hoemmen '10 / Carson '15) — ONE collective per **s iterations**.
 
-Why it matters on a TPU pod: the SpMV halo exchange is neighbor-local
-(ppermute over ICI, latency hidden behind the interior kernel), but a CG
+Why it matters on a large mesh: the SpMV halo exchange is neighbor-local
+(ppermute, latency hidden behind the interior SpMV), but a CG
 dot product is a full-mesh ``psum`` whose latency grows with mesh
 diameter and cannot overlap with anything — it gates alpha/beta. At pod
 scale the solve becomes REDUCTION-latency-bound; s-step CG amortizes one
@@ -59,9 +59,9 @@ estimate it. In fp32 the block updates accumulate rounding faster than
 plain CG's scalar recurrences: the attainable relative residual floors
 around ~kappa * eps (measured 3e-4 at kappa ~ 1.7e3 vs plain CG's 9e-6),
 and beyond kappa ~ 1e4 the fp32 iteration stalls or diverges outright
-(measured on chip AND on CPU — it is the precision, not the device; on
-TPU additionally every matmul here runs at precision=HIGHEST because the
-MXU's default bf16 operand rounding corrupts the block recurrences).
+(it is the precision, not the device; every matmul here runs at
+precision=HIGHEST because reduced-precision products — TF32 on GPUs —
+corrupt the block recurrences).
 The solver is divergence-SAFE, not divergence-free: non-finite or
 1e4x-grown residuals exit the loop, the best iterate visited is
 returned, and ``converged``/``rnorm`` report the true final residual —
@@ -76,14 +76,13 @@ import jax
 import jax.numpy as jnp
 
 from spmv_tpu.solvers.cg import CGResult
+from spmv_tpu.utils.precision import highest_precision
 
 
 def _mm(a, b):
-    """Matmul at HIGHEST precision: TPU MXU f32 matmuls round operands to
-    bf16 at default precision (~1e-3 relative error — measured to drive
-    the block recurrences to NaN at kappa ~ 2.6e4 on chip, while the same
-    solve is clean on CPU where f32 matmul is exact). Every matrix product
-    here is tiny next to the SpMVs, so the 6-pass emulation is free."""
+    """Matmul at HIGHEST precision: a reduced-precision f32 product (TF32
+    on GPUs, ~1e-3 relative error) drives the block recurrences to NaN at
+    kappa ~ 2.6e4. Every matrix product here is tiny next to the SpMVs."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -122,6 +121,7 @@ def _estimate_lmax(matvec_flat, v0, iters: int = 12):
     return lam
 
 
+@highest_precision
 def cg_sstep(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

@@ -26,7 +26,7 @@ spectra — as an INNER solver for mixed-precision refinement
 (block_cg_refined(inner_solver="chebyshev")): fixed iteration count,
 fixed cost, no collectives, no decay.
 
-Measured envelope (on chip): at kappa ~ 1e3 the Chebyshev inner reaches
+Measured envelope: at kappa ~ 1e3 the Chebyshev inner reaches
 the same f64-class refinement floor as CG; at kappa ~ 1e5 a 48-step
 Lanczos cannot certify the clustered bottom of the spectrum, the
 quarter-theta floor lands above lambda_min, and refinement STALLS SAFELY
@@ -43,6 +43,7 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -56,6 +57,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def chebyshev(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,
@@ -97,6 +99,7 @@ def chebyshev(
     return ChebyshevResult(x=x, iterations=iters)
 
 
+@highest_precision
 def chebyshev_bounds(
     matvec: Callable[[jax.Array], jax.Array],
     v0: jax.Array,
@@ -185,6 +188,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def chebyshev_adaptive(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

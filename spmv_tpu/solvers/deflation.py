@@ -17,9 +17,9 @@ explicitly):
     p0 = z0 - W E^-1 (AW)^T z0
     per iteration (on top of PCG):  mu = E^-1 (AW)^T z ;  p = z + beta p - W mu
 
-TPU shape of the trade: the per-iteration extra work is two tall-skinny
-dense matmuls ((n, d) with d ~ 4-32) and a d x d triangular solve — MXU
-food with zero extra SpMVs and zero extra reductions beyond the (d,)
+Shape of the trade: the per-iteration extra work is two tall-skinny
+dense matmuls ((n, d) with d ~ 4-32) and a d x d triangular solve, with
+zero extra SpMVs and zero extra reductions beyond the (d,)
 results of the matmuls (A-symmetry gives W^T A z = (A W)^T z, so the
 precomputed AW replaces a second operator apply). Setup costs d matvecs.
 
@@ -36,8 +36,10 @@ import jax
 import jax.numpy as jnp
 
 from spmv_tpu.solvers.cg import CGResult
+from spmv_tpu.utils.precision import highest_precision
 
 
+@highest_precision
 def cg_deflated(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

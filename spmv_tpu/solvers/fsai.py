@@ -5,15 +5,15 @@ operators (Kolotilina & Yeremin '93).
 UNFACTORIZED approximate inverse; M = SPAI(A) is in general not symmetric
 even for symmetric A, so it cannot drive PCG/PMINRES/LOBPCG, which require
 an SPD M^-1. The classical SPD answer is incomplete Cholesky — but IC(0)'s
-apply is two SEQUENTIAL triangular solves, the most TPU-hostile primitive
-there is (data-dependent recurrence, no tiling; the reference hides this
+apply is two SEQUENTIAL triangular solves, the most parallel-hostile
+primitive there is (data-dependent recurrence, no tiling; the reference hides this
 on CPU backends only). FSAI is the parallel-native factorized alternative:
 compute a sparse LOWER-TRIANGULAR G approximating inv(chol(A)) so that
 
     M^-1 = G^T G   (SPD by construction whenever diag(G) > 0)
 
 and the apply z = G^T (G r) is two SpMVs riding this library's ELL/DIA/
-WELL kernels and halo plans — zero new communication machinery, zero
+WELL applies and halo plans — zero new communication machinery, zero
 sequential solves, deterministic.
 
 Math (FSAI(0), static pattern = pattern(tril(A))): row i of G minimizes
@@ -24,7 +24,7 @@ the Kaporin functional, equivalently solves the tiny SPD system
 followed by the scaling g_i <- g_i / sqrt(g_i[i]) which makes
 diag(G A G^T) = 1 exactly. The rows DECOUPLE — like SPAI the setup is one
 batched dense solve over all rows, fully vectorized host numpy (the local
-problems are row-degree-sized; far too small for the MXU to matter).
+problems are row-degree-sized; far too small for a device to matter).
 
 Quality guarantee carried by the theory: for SPD A the local systems are
 SPD (principal submatrices), g_i[i] = (e_i^T A[J,J]^{-1} e_i) > 0, so G
@@ -34,7 +34,7 @@ near-singular blocks at fp precision.
 
 The reference has no preconditioning at all (reference spmv/cg.cpp:21-98
 is plain CG); this supplies the SPD-side general-sparsity preconditioner
-the TPU-native way, completing the pair {SPAI (general), FSAI (SPD)}.
+with parallel primitives only, completing the pair {SPAI (general), FSAI (SPD)}.
 """
 from __future__ import annotations
 

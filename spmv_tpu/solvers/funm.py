@@ -19,7 +19,7 @@ CGS2-reorthogonalized, distributed through the injected ``matvec``), then
 
 with T_m = U Theta U^T the m x m tridiagonal eigendecomposition. The
 whole pipeline is pure JAX and JITTABLE END TO END — symmetric ``eigh``
-lowers on TPU, so unlike Arnoldi extraction nothing round-trips to host.
+lowers on every backend, so unlike Arnoldi extraction nothing round-trips to host.
 Convergence is superlinear for entire functions (exp) and
 smooth-on-spectrum functions: m ~ sqrt(|t| * lambda_max) steps for the
 exponential, m ~ sqrt(kappa) log(1/tol) for inverse roots.
@@ -37,8 +37,10 @@ import jax
 import jax.numpy as jnp
 
 from spmv_tpu.solvers.lanczos import lanczos_factorization
+from spmv_tpu.utils.precision import highest_precision
 
 
+@highest_precision
 def funm_multiply(
     matvec: Callable[[jax.Array], jax.Array],
     v0: jax.Array,
@@ -104,6 +106,7 @@ def sqrt_multiply(
     return funm_multiply(matvec, v0, f, m=m)
 
 
+@highest_precision
 def slq_trace(
     matvec: Callable[[jax.Array], jax.Array],
     f: Callable[[jax.Array], jax.Array],

@@ -7,11 +7,11 @@ ships CG only (reference spmv/cg.cpp). Same architecture: pure JAX, one
 inside, device-resident scalars, distribution injected through ``matvec``
 (sharded global reductions lower to psum under jit).
 
-TPU-native choices:
+Design choices:
 - Orthogonalization is CLASSICAL Gram-Schmidt done twice (CGS2): the
   projections are batched dots against the whole basis — ONE (m+1, n) @ (n,)
   matmul pass per application instead of modified-GS's j sequential dots —
-  MXU/VPU-friendly and numerically as strong as MGS when applied twice.
+  matmul-friendly and numerically as strong as MGS when applied twice.
   Masking keeps not-yet-filled basis rows inert.
 - The Hessenberg is reduced INCREMENTALLY with Givens rotations (complex-
   capable), so each Arnoldi step has a free running residual estimate
@@ -38,6 +38,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -57,6 +58,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def gmres(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

@@ -55,9 +55,9 @@ If bounds are omitted, a 12-step power iteration estimates the dominant
 |lambda| once.
 
 Precision: every Gram/projection/recovery matmul runs at
-precision=HIGHEST — the MXU's default bf16 operand rounding corrupts
-the Hessenberg recovery exactly as it corrupted cg_sstep's block
-recurrences on chip (BENCH_NOTES "s-step CG on chip").
+precision=HIGHEST — a reduced-precision f32 product (TF32 on GPUs)
+corrupts the Hessenberg recovery exactly as it corrupts cg_sstep's block
+recurrences.
 """
 from __future__ import annotations
 
@@ -69,8 +69,10 @@ import numpy as np
 
 from spmv_tpu.solvers.cg_sstep import _estimate_lmax, _mm
 from spmv_tpu.solvers.gmres import GMRESResult
+from spmv_tpu.utils.precision import highest_precision
 
 
+@highest_precision
 def gmres_sstep(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

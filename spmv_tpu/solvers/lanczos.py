@@ -10,7 +10,7 @@ Lanczos run with full reorthogonalization estimates lambda_min/lambda_max
 Same architecture as the other solvers: pure JAX ``lax.scan`` over the
 injected ``matvec`` (so it runs on a DistMatrix across a mesh — the dots
 psum under jit), CGS2 full reorthogonalization as batched matmuls (the
-MXU-friendly choice, like solvers/gmres.py), small tridiagonal eigensolve
+matmul-friendly choice, like solvers/gmres.py), small tridiagonal eigensolve
 on device. The operator's padding rows must map zero to zero (true for all
 formats here) and ``v0`` must be zero in the padding so the Krylov space
 never leaves the genuine operator subspace.
@@ -21,6 +21,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 def lanczos_extreme(
@@ -39,6 +40,7 @@ def lanczos_extreme(
     return lmin, lmax
 
 
+@highest_precision
 def lanczos_factorization(
     matvec: Callable[[jax.Array], jax.Array],
     v0: jax.Array,

@@ -7,13 +7,12 @@ only). LOBPCG (Knyazev 2001) computes the k smallest (or largest)
 eigenpairs simultaneously, which is what mesh-quality analysis, spectral
 partitioning, and sharper Chebyshev lower bounds actually need.
 
-TPU-native shape — the whole point of choosing LOBPCG over shift-invert
-Lanczos here:
-- the hot operation is a BLOCK apply A @ X (n, k): on DIA local formats
-  that rides the multi-RHS SpMM kernel (matrix streamed ONCE per block,
-  ops/spmm_dia_pallas) via ``DistMatrix.matmat``;
+Shape — the whole point of choosing LOBPCG over shift-invert Lanczos
+here:
+- the hot operation is a BLOCK apply A @ X (n, k): on DIA and WELL local
+  formats ``DistMatrix.matmat`` reads the matrix ONCE per block;
 - everything else is small dense algebra — (3k, 3k) Gram matrices and
-  eigendecompositions — replicated MXU work, no communication;
+  eigendecompositions — replicated, no communication;
 - one block apply + two Gram psums per iteration; no inner solves, no
   factorizations, preconditioner optional (e.g.
   ``chebyshev_preconditioner`` on a shifted operator).
@@ -37,6 +36,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -56,11 +56,10 @@ jax.tree_util.register_dataclass(
 )
 
 
-# all dense block algebra runs at HIGHEST precision: on TPU the MXU rounds
-# f32 matmul operands to bf16 at default precision (~8 mantissa bits lost),
-# which corrupts the whitening Grams enough to stall convergence (measured
-# on chip: residuals floor 300 iterations in). These are small matrices —
-# the extra passes are noise next to the block matmat.
+# all dense block algebra runs at HIGHEST precision: a reduced-precision
+# f32 product (TF32 on GPUs, ~3 decimal digits) corrupts the whitening
+# Grams enough to stall convergence. These are small matrices — the extra
+# cost is noise next to the block matmat.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -108,6 +107,7 @@ def _whiten_map(G, rtol_rank):
     return V * inv[None, :], good
 
 
+@highest_precision
 def lobpcg(
     matmat: Callable[[jax.Array], jax.Array],
     X0: jax.Array,

@@ -13,7 +13,7 @@ on the normal equations A^T A x = A^T b but numerically far better, because
 A^T A is never formed and its squared condition number never enters the
 recurrences directly.
 
-TPU-native architecture — same rules as ``cg``:
+Architecture — same rules as ``cg``:
 - ONE pure-JAX ``lax.while_loop``; every scalar device-resident; the
   convergence branch compiles into the loop (zero host round-trips).
 - Distribution is injected through ``matvec`` (column-space -> row-space)
@@ -41,6 +41,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -63,6 +64,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def lsqr(
     matvec: Callable[[jax.Array], jax.Array],
     rmatvec: Callable[[jax.Array], jax.Array],

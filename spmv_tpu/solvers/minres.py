@@ -10,7 +10,7 @@ Saunders 1975) minimizes |b - A x| over the same Krylov space using the
 symmetric Lanczos recurrence + Givens rotations, so it converges for ANY
 symmetric A — the natural companion to the symmetric storage path.
 
-TPU-native shape, matching solvers/cg.py:
+Shape, matching solvers/cg.py:
 - one pure-JAX ``lax.while_loop`` serves every device and mesh; scalars
   stay device-resident (no per-iteration D2H — the reference CUDA CG still
   pays one, reference spmv/cuda/cg.cuda.cu:139-144);
@@ -31,6 +31,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
+from spmv_tpu.utils.precision import highest_precision
 
 
 @dataclasses.dataclass
@@ -49,6 +50,7 @@ jax.tree_util.register_dataclass(
 )
 
 
+@highest_precision
 def minres(
     matvec: Callable[[jax.Array], jax.Array],
     b: jax.Array,

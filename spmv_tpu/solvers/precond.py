@@ -1,22 +1,20 @@
-"""Preconditioners beyond the diagonal — TPU-native block Jacobi.
+"""Preconditioners beyond the diagonal — block Jacobi.
 
 The reference has no preconditioning at all (its CG is unpreconditioned,
 reference spmv/cg.cpp:21-98). spmv_tpu already offers diagonal (Jacobi)
-scaling; this module adds BLOCK Jacobi, the preconditioner that actually
-fits TPU hardware:
+scaling; this module adds BLOCK Jacobi, which fits the lane layout:
 
   - the operator's 128x128 diagonal blocks align exactly with the vector
     lane layout (one block per lane-row of the distributed vectors);
   - the blocks are inverted ONCE at setup as a single batched
-    jnp.linalg.inv over a (G, 128, 128) array (dense batched solves are
-    MXU work);
+    jnp.linalg.inv over a (G, 128, 128) array;
   - the apply is one batched (G, 128, 128) @ (G, 128) matmul per
     iteration — embarrassingly parallel across shards, ZERO communication
     (block-diagonal structure never crosses the row partition because the
     partition is 128-aligned by construction).
 
 Sequential-factorization preconditioners (ILU/IC) are deliberately absent:
-their triangular solves serialize on TPU; block Jacobi is the standard
+their triangular solves serialize; block Jacobi is the standard
 communication-free alternative at this layer.
 """
 from __future__ import annotations
@@ -78,6 +76,7 @@ def block_jacobi_preconditioner(a: CSRHost, A: DistMatrix):
 
     def apply(r):
         # r: (D*G, 128) lane layout -> batched block solve, no comm
-        return jnp.einsum("grc,gc->gr", binv_d, r)
+        return jnp.einsum("grc,gc->gr", binv_d, r,
+                          precision=jax.lax.Precision.HIGHEST)
 
     return apply

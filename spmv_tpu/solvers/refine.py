@@ -1,25 +1,23 @@
 """Mixed-precision iterative refinement: float64-class solves from fp32 CG.
 
 The reference solves in double everywhere (reference spmv/cg.cpp, double
-only). On TPU, f64 runs through software emulation (~1/6 of f32 streaming,
-BENCH_NOTES.md), so solving natively in f64 wastes the hardware. The
-standard mixed-precision answer (Wilkinson iterative refinement):
+only). The mixed-precision alternative (Wilkinson iterative refinement)
+keeps the hot loop in float32:
 
     repeat:
-        r = b - A x          # in double-single (exact to ~2^-48):
-                             #   the DS Pallas kernel, fast
-        d ~= A^{-1} r        # inner CG in fp32 (the fast kernel), loose tol
+        r = b - A x          # in double-single (exact to ~2^-48)
+        d ~= A^{-1} r        # inner CG in fp32, loose tol
         x = x + d            # accumulated in double-single
 
 Each outer pass multiplies the error by ~inner_tol, so 3-4 passes reach
 ~1e-14 TRUE residual — accuracy plain fp32 CG can never achieve (its floor
-is kappa * eps_f32), at fp32 kernel speed. The attainable floor is
+is kappa * eps_f32), at fp32 SpMV speed. The attainable floor is
 ~ kappa * 2^-48 relative (double-single residual precision); the loop stops
 early when it stalls there. The outer loop runs on host (a handful of jit
 calls); all hot work is the fp32 CG and the DS SpMV.
 
-Single-device operators (DiaMatrix fp32 + DiaDsMatrix); the distributed
-version (DS halos) is round-3 backlog.
+``cg_refined`` takes single-device operators (DiaMatrix fp32 +
+DiaDsMatrix); ``cg_refined_dist`` runs on a device mesh (DS halos).
 """
 from __future__ import annotations
 
@@ -31,15 +29,9 @@ import numpy as np
 
 from spmv_tpu.ds import ds_add, ds_from_f64, ds_to_f64
 from spmv_tpu.formats.csr import CSRHost
-from spmv_tpu.formats.dia import DiaMatrix, csr_to_dia
-from spmv_tpu.ops.spmv_dia import spmv_dia
-from spmv_tpu.ops.spmv_dia_ds_pallas import (
-    DiaDsMatrix,
-    csr_to_dia_ds,
-    dia_ds_pallas_supported,
-    spmv_dia_ds_pallas_2d,
-)
-from spmv_tpu.ops.spmv_dia_pallas import dia_pallas_supported, spmv_dia_pallas_2d
+from spmv_tpu.formats.dia import csr_to_dia
+from spmv_tpu.ops.spmv_dia import spmv_dia_2d
+from spmv_tpu.ops.spmv_dia_ds import csr_to_dia_ds, spmv_dia_ds_2d
 from spmv_tpu.solvers.cg import cg
 
 LANES = 128
@@ -63,7 +55,6 @@ def cg_refined(
     inner_rtol: float = 1e-6,
     inner_kmax: int = 500,
     jacobi: bool = False,
-    interpret: bool = False,
 ) -> RefineResult:
     """Solve SPD ``a x = b`` to float64-class TRUE residual using fp32
     compute. ``a`` must be banded (DIA-convertible); fp64 values honored via
@@ -71,10 +62,8 @@ def cg_refined(
     solves — for ill-conditioned systems this cuts inner iterations without
     touching the refinement floor (the DS residual path is unchanged).
     """
-    d32 = csr_to_dia(a, row_align=1024, dtype=np.float32)
-    dds = csr_to_dia_ds(a, row_align=1024)
-    if not interpret and jax.default_backend() == "tpu":
-        assert dia_pallas_supported(d32) and dia_ds_pallas_supported(dds)
+    d32 = csr_to_dia(a, dtype=np.float32)
+    dds = csr_to_dia_ds(a)
     npad = dds.nrows_pad
     n = a.nrows
 
@@ -82,8 +71,6 @@ def cg_refined(
     bh2 = jnp.asarray(bh.reshape(-1, LANES))
     bl2 = jnp.asarray(bl.reshape(-1, LANES))
     bnorm = float(np.linalg.norm(b))
-
-    on_tpu = jax.default_backend() == "tpu" and not interpret
 
     @jax.jit
     def residual_ds(dds_, bh2_, bl2_, xh2, xl2):
@@ -93,7 +80,7 @@ def cg_refined(
         rounded f32 image of the exactly-accumulated residual — all the
         fp32 inner solve can consume; the sub-f32 tail rl would only be
         held alive for nothing (0.4 GB at 100M rows)."""
-        yh, yl = spmv_dia_ds_pallas_2d(dds_, xh2, xl2, interpret=not on_tpu)
+        yh, yl = spmv_dia_ds_2d(dds_, xh2, xl2)
         rh, _rl = ds_add(bh2_, bl2_, -yh, -yl)
         return rh
 
@@ -119,12 +106,7 @@ def cg_refined(
                 return jnp.where(diag2_ != 0,
                                  r2 / jnp.where(diag2_ != 0, diag2_, 1), r2)
 
-        def mv(p2):
-            if on_tpu:
-                return spmv_dia_pallas_2d(d32_, p2)
-            return spmv_dia(d32_, p2.reshape(-1), method="xla").reshape(p2.shape)
-
-        res = cg(mv, rs, kmax=inner_kmax, rtol=inner_rtol,
+        res = cg(lambda p2: spmv_dia_2d(d32_, p2), rs, kmax=inner_kmax, rtol=inner_rtol,
                  preconditioner=precond)
         return res.x, res.iterations
 

@@ -3,17 +3,17 @@
 The nonsymmetric solvers (``bicgstab``/``gmres``) so far had only diagonal
 and block-Jacobi preconditioning; the classical strong general-purpose
 choices (ILU/Gauss-Seidel) are built around SEQUENTIAL triangular solves —
-the single most TPU-hostile primitive there is (data-dependent recurrences
-that cannot tile onto the VPU/MXU, reference-style backends hide this on
-the CPU path only). SPAI (Grote & Huckle '97) is the parallel-native
+the single most parallel-hostile primitive there is (data-dependent
+recurrences that cannot tile; reference-style backends hide this on the
+CPU path only). SPAI (Grote & Huckle '97) is the parallel-native
 alternative: choose a sparsity pattern for M, then minimize
 
     ||A M - I||_F^2  =  sum_j || A m_j - e_j ||_2^2
 
 which DECOUPLES into one tiny independent least-squares problem per column
 — embarrassingly parallel setup, and the apply z = M r is just another
-SpMV that rides this library's ELL/DIA/WELL kernels and halo plans at full
-kernel speed with zero extra communication machinery.
+SpMV that rides this library's ELL/DIA/WELL applies and halo plans with
+zero extra communication machinery.
 
 Implementation (static pattern = pattern(A), the SPAI(0/1) choice):
 - For column j: J = pattern of A's column j, I = rows where A[:, J] is
@@ -23,7 +23,7 @@ Implementation (static pattern = pattern(A), the SPAI(0/1) choice):
   cumsum/repeat, per-column dedup via one global lexsort, submatrix gather
   via one sorted-key searchsorted over A's nonzeros, then ONE batched
   normal-equations solve (n, kc, kc) in f64 (the problems are far too small
-  for the MXU to matter; f64 numpy beats shipping 5-digit-batch tiny SVDs
+  for a device to matter; f64 numpy beats shipping 5-digit-batch tiny SVDs
   through XLA). A relative ridge keeps padded/rank-deficient columns exact
   zeros instead of NaNs.
 - ``spai_preconditioner(A)`` wraps setup for a ``DistMatrix``: M inherits
@@ -32,7 +32,7 @@ Implementation (static pattern = pattern(A), the SPAI(0/1) choice):
 
 The reference has no preconditioning at all (its CG is unpreconditioned,
 reference spmv/cg.cpp:21-98); this closes the nonsymmetric-preconditioner
-gap the TPU-native way.
+gap with parallel primitives only.
 """
 from __future__ import annotations
 

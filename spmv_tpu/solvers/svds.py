@@ -41,8 +41,10 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 import numpy as np
+from spmv_tpu.utils.precision import highest_precision
 
 
+@highest_precision
 def gk_factorization(
     matvec: Callable[[jax.Array], jax.Array],
     rmatvec: Callable[[jax.Array], jax.Array],
@@ -144,6 +146,7 @@ class SVDSResult:
     steps: int               # bidiagonalization steps actually informative
 
 
+@highest_precision
 def svds(
     matvec: Callable[[jax.Array], jax.Array],
     rmatvec: Callable[[jax.Array], jax.Array],

@@ -4,7 +4,7 @@ Multi-device testing strategy (SURVEY.md section 4 implication): where the
 reference runs every test under ``mpiexec -np {1,2}``
 (reference tests/CMakeLists.txt:22-30), we force N=8 virtual CPU devices via
 XLA's host-platform flag, so distributed paths run on a real mesh with real
-collectives without TPU hardware. Must be set before jax imports.
+collectives without accelerator hardware. Must be set before jax imports.
 """
 import os
 

@@ -15,7 +15,7 @@ def test_block_cg_solves_all_columns(nrhs):
     d = csr_to_dia(a, dtype=np.float64, row_align=4096)
     rng = np.random.default_rng(nrhs)
     B = rng.standard_normal((a.nrows, nrhs))
-    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-10, interpret=True)
+    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-10)
     assert bool(res.converged), np.asarray(res.rnorm)
     for r in range(nrhs):
         rel = np.linalg.norm(a.matvec(np.asarray(X[:, r])) - B[:, r]) \
@@ -28,7 +28,7 @@ def test_block_cg_fewer_iterations_than_worst_column():
     the hardest column alone with plain CG."""
     import jax
 
-    from spmv_tpu.ops.spmv_dia_pallas import spmv_dia_pallas_2d, dia_to_2d
+    from spmv_tpu.ops.spmv_dia import dia_to_2d, spmv_dia_2d
     from spmv_tpu.solvers.cg import cg
 
     a = create_laplace_2d(32, 32)
@@ -36,18 +36,14 @@ def test_block_cg_fewer_iterations_than_worst_column():
     rng = np.random.default_rng(9)
     B = np.stack([gaussian_bump(a.nrows), rng.standard_normal(a.nrows),
                   rng.standard_normal(a.nrows)], axis=1)
-    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-9, interpret=True)
+    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-9)
     assert bool(res.converged)
-
-    from spmv_tpu.ops.spmv_dia import spmv_dia
 
     worst = 0
     for r in range(3):
         b2 = dia_to_2d(d, jnp.asarray(np.pad(B[:, r],
                                              (0, d.nrows_pad - a.nrows))))
-        single = cg(lambda p: spmv_dia(d, p.reshape(-1),
-                                       method="xla").reshape(p.shape),
-                    b2, kmax=800, rtol=1e-9)
+        single = cg(lambda p: spmv_dia_2d(d, p), b2, kmax=800, rtol=1e-9)
         worst = max(worst, int(single.iterations))
     assert int(res.iterations) <= worst, (int(res.iterations), worst)
 
@@ -61,7 +57,7 @@ def test_block_cg_mixed_convergence_rates():
     x_known = rng.standard_normal(a.nrows)
     B = np.stack([a.matvec(x_known) * 1e-8,  # tiny, converges instantly
                   rng.standard_normal(a.nrows)], axis=1)
-    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-8, interpret=True)
+    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-8)
     assert bool(res.converged)
     for r in range(2):
         rel = np.linalg.norm(a.matvec(np.asarray(X[:, r])) - B[:, r]) \
@@ -72,14 +68,14 @@ def test_block_cg_mixed_convergence_rates():
 def test_block_cg_refined_f64_class():
     """fp32 block-CG inner + DS residual refinement: TRUE f64-class
     residuals for every column (the naked fp32 block solve stalls at
-    kappa*eps_f32 — measured on chip)."""
+    kappa*eps_f32)."""
     from spmv_tpu.solvers.block_cg import block_cg_refined
 
     a = create_laplace_2d(48, 48)
     rng = np.random.default_rng(21)
     B = rng.standard_normal((a.nrows, 3))
     X, outer, inner, rnorms = block_cg_refined(
-        a, B, rtol=1e-11, inner_kmax=2000, inner_rtol=1e-5, interpret=True)
+        a, B, rtol=1e-11, inner_kmax=2000, inner_rtol=1e-5)
     for r in range(3):
         rel = np.linalg.norm(a.matvec(X[:, r]) - B[:, r]) \
             / np.linalg.norm(B[:, r])

@@ -100,8 +100,8 @@ def test_sstep_fp32_reports_floor_honestly():
 def test_sstep_fp32_high_kappa_divergence_safe():
     """Beyond the fp32 envelope (kappa ~ 2.6e4) the s-step iteration
     stalls or diverges; the solver must exit gracefully: finite x, finite
-    true rnorm, converged=False — never NaN. (On TPU the divergence is
-    harsher — MXU bf16 matmul rounding — which is why the solver forces
+    true rnorm, converged=False — never NaN. (Reduced-precision
+    matmuls — TF32 on GPUs — make it harsher, which is why the solver forces
     precision=HIGHEST; this test pins the precision-generic safety net.)"""
     from spmv_tpu.gen import create_laplace_1d
 

@@ -60,7 +60,7 @@ def test_chebyshev_bounds_enclose_spectrum():
 
 def test_refined_block_chebyshev_inner_f64_class():
     """block_cg_refined(inner_solver='chebyshev') reaches f64-class
-    residuals with reduction-free inner sweeps (CPU interpret path)."""
+    residuals with reduction-free inner sweeps."""
     from spmv_tpu.gen import create_laplace_2d
     from spmv_tpu.solvers.block_cg import block_cg_refined
 
@@ -69,7 +69,7 @@ def test_refined_block_chebyshev_inner_f64_class():
     B = np.random.default_rng(9).standard_normal((a.nrows, nrhs))
     X, outers, inners, rnorms = block_cg_refined(
         a, B, rtol=1e-11, inner_rtol=1e-4, inner_kmax=2000,
-        interpret=True, inner_solver="chebyshev")
+        inner_solver="chebyshev")
     bnorm = np.linalg.norm(B, axis=0)
     R = np.stack([a.matvec(X[:, r]) for r in range(nrhs)], axis=1) - B
     rel = np.linalg.norm(R, axis=0) / bnorm

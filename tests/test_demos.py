@@ -67,18 +67,24 @@ def test_demo_restrict_cli():
     assert "verified against dense oracle" in stdout
 
 
-def test_bench_json_shape():
-    """bench.py's contract: ONE JSON line with the required keys. Run its
-    pieces on CPU with a tiny problem by importing and checking the dict
-    structure instead of paying a TPU run."""
+def test_bench_json_shape(capsys):
+    """bench.py's contract: ONE JSON line naming the device, with every
+    cell present. ``--smoke`` runs the real code at tiny sizes on the CPU
+    and reports no time or rate."""
     sys.path.insert(0, REPO)
     import bench
 
-    assert callable(bench.main)
-    # the JSON contract is exercised on TPU by the driver (and by
-    # `bench.py --smoke` in CI); here we check the timing helper exists and
-    # the module imports cleanly
-    assert hasattr(bench, "interleaved_trial_seconds")
+    assert bench.main(["--smoke", "--no-corpus"]) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    out = json.loads(line)
+    assert out["device"]["platform"] == "cpu" and out["smoke"] is True
+    cells = out["cells"]
+    assert {"lap2d_dia_vanilla", "lap2d_dia_symmetric", "lap2d_dia_matmat8",
+            "banded_random_4M", "lap2d_solvers"} <= set(cells)
+    assert cells["banded_random_4M"]["format"] == "well"
+    assert "ms_per_apply" not in json.dumps(cells)
+    with pytest.raises(KeyError, match="no published peak"):
+        bench.hbm_peak_gbs("cpu")
 
 
 def test_demo_cg_mtx_file(tmp_path):

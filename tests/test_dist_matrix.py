@@ -288,8 +288,8 @@ def test_dist_dia_transpose_fuzz(n_dev):
 
 @pytest.mark.parametrize("n_dev", [1, 2, 8])
 def test_dist_well_local_format(n_dev):
-    """Distributed WELL local blocks (general-sparsity Pallas path, interpret
-    mode on CPU) vs the oracle and vs the ELL path."""
+    """Distributed WELL local blocks (the general-sparsity gather path) vs
+    the oracle and vs the ELL path."""
     from spmv_tpu.gen import random_csr
 
     a = random_csr(700, 700, 6, seed=90)
@@ -333,7 +333,7 @@ def test_local_format_auto_selection():
 
     # f64 inputs auto-route to the double-single formats (the reference is
     # double-throughout, reference spmv/Matrix.cpp:565-566; the XLA-f64
-    # emulation path is ~7x slower than DS on chip)
+    # emulation path)
     assert select_local_format(create_laplace_2d(16, 16)) == "dia_ds"
     assert select_local_format(random_csr(700, 700, 6, seed=1)) == "well_ds"
     assert select_local_format(

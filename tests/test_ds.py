@@ -1,8 +1,7 @@
 """Double-single (two-float32) arithmetic + the DS DIA kernel vs f64 oracle.
 
-The fp64-parity answer for TPU (the reference is double-throughout,
-reference spmv/Matrix.cpp:565-566): XLA-emulated f64 streams at ~1/6 of f32
-rate on chip; double-single carries ~48 significand bits at f32 cost.
+Double-single carries ~48 significand bits from f32 storage and arithmetic
+(the reference is double-throughout, reference spmv/Matrix.cpp:565-566).
 """
 import jax
 import jax.numpy as jnp
@@ -18,9 +17,8 @@ from spmv_tpu.ds import (
     two_sum,
 )
 from spmv_tpu.gen import create_laplace_1d, create_laplace_2d
-from spmv_tpu.ops.spmv_dia_ds_pallas import (
+from spmv_tpu.ops.spmv_dia_ds import (
     csr_to_dia_ds,
-    dia_ds_pallas_supported,
     spmv_dia_ds,
 )
 
@@ -67,9 +65,8 @@ def test_ds_dia_kernel_f64_class(gen):
     # perturb values below f32 resolution so plain-f32 storage would fail
     a.values[:] = a.values * (1 + 1e-9 * rng.standard_normal(a.nnz))
     d = csr_to_dia_ds(a, row_align=1024)
-    assert dia_ds_pallas_supported(d)
     x = rng.standard_normal(a.nrows) * 1e3
-    y = spmv_dia_ds(d, x, interpret=True)[: a.nrows]
+    y = spmv_dia_ds(d, x)[: a.nrows]
     want = a.matvec(x)
     err = np.linalg.norm(y - want) / np.linalg.norm(want)
     assert err < 1e-13, err
@@ -85,14 +82,14 @@ def test_ds_well_general_sparsity_f64_class():
     """Double-single WELL: f64-class GENERAL sparsity (values perturbed
     below f32 resolution must survive)."""
     from spmv_tpu.gen import random_csr
-    from spmv_tpu.ops.spmv_well_pallas import csr_to_well_ds, spmv_well_ds
+    from spmv_tpu.ops.spmv_well import csr_to_well_ds, spmv_well_ds
 
     rng = np.random.default_rng(0)
     a = random_csr(600, 600, 6, seed=1)
     a.values[:] = a.values * (1 + 1e-10 * rng.standard_normal(a.nnz))
     w = csr_to_well_ds(a, tile_groups=2)
     x = rng.standard_normal(a.ncols) * 1e2
-    y = spmv_well_ds(w, x, interpret=True)[: a.nrows]
+    y = spmv_well_ds(w, x)[: a.nrows]
     want = a.matvec(x)
     err = np.linalg.norm(y - want) / np.linalg.norm(want)
     assert err < 1e-13, err

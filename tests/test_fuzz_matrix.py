@@ -149,13 +149,13 @@ def test_complex_dia_path_and_solver():
     d = csr_to_dia(a)
     x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     y = np.asarray(spmv_dia(
-        d, jnp.asarray(np.pad(x, (0, d.nrows_pad - n))), method="xla"))[:n]
+        d, jnp.asarray(np.pad(x, (0, d.nrows_pad - n)))))[:n]
     want = a.to_dense() @ x
     assert np.linalg.norm(y - want) / np.linalg.norm(want) < 1e-13
 
     b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     bp = jnp.asarray(np.pad(b, (0, d.nrows_pad - n)))
-    res = gmres(lambda v: spmv_dia(d, v, method="xla"), bp,
+    res = gmres(lambda v: spmv_dia(d, v), bp,
                 restart=25, max_cycles=20, rtol=1e-10)
     assert bool(res.converged)
     xs = np.asarray(res.x)[:n]

@@ -186,16 +186,15 @@ def test_gmres_sstep_ill_conditioned_basis():
 
 
 def test_powers_dia_window_pallas_aligned():
-    """The DIA powers window is 1024-row aligned so dia_pallas_supported
-    accepts it on chip — 128-only alignment silently dropped multi-shard
-    geometries to the XLA apply."""
-    from spmv_tpu.ops.spmv_dia_pallas import LANES
+    """The DIA powers window is aligned to whole 128-lane rows, the layout
+    its apply reshapes into."""
+    from spmv_tpu.ops.spmv_dia import LANES
 
     a = create_laplace_2d(24, 24)
     A = build_dist_matrix(a, n_devices=4, local_format="dia")
     pp = build_powers_plan(a, A, s=3)
     assert pp.local_format == "dia"
-    assert pp.dia_rows % (8 * LANES) == 0
+    assert pp.dia_rows % LANES == 0
 
 
 def test_gmres_sstep_validation():

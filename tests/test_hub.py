@@ -3,7 +3,7 @@
 The reference's CSR row loop is indifferent to row-degree skew
 (reference spmv/csr_kernels.cpp:42-50; cuSPARSE likewise,
 reference spmv/cuda/csr_kernels.cuda.cu:106-151) — a 16k-nnz hub row
-costs 16k ops. The row-uniform TPU formats are NOT: one hub row inflates
+costs 16k ops. The row-uniform formats are NOT: one hub row inflates
 every ELL row to K=16k (an observed 33 GB allocation on the 500k-row
 power-law corpus matrix, BENCH_r04 corpus_error). These tests pin the
 fix: hub rows leave the row-uniform formats into a gather-side hub block

@@ -1,4 +1,4 @@
-"""Block-Jacobi preconditioner (TPU-native batched 128x128 block inverses;
+"""Block-Jacobi preconditioner (batched 128x128 block inverses;
 the reference has no preconditioning at all)."""
 import jax
 import numpy as np

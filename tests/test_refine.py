@@ -14,7 +14,7 @@ from spmv_tpu.solvers.refine import cg_refined
 def test_refinement_reaches_f64_class_residual():
     a = create_laplace_2d(48, 48)
     b = gaussian_bump(a.nrows)
-    res = cg_refined(a, b, rtol=1e-12, inner_kmax=2000, interpret=True)
+    res = cg_refined(a, b, rtol=1e-12, inner_kmax=2000)
     assert res.converged
     rel = np.linalg.norm(a.matvec(res.x) - b) / np.linalg.norm(b)
     assert rel < 1e-11, rel
@@ -38,13 +38,13 @@ def test_refinement_beats_pure_fp32_floor():
 
     d32 = csr_to_dia(a, row_align=1024, dtype=np.float32)
     b32 = jnp.asarray(np.pad(b, (0, d32.nrows_pad - a.nrows)).astype(np.float32))
-    res32 = cg(lambda p: spmv_dia(d32, p, method="xla"), b32,
+    res32 = cg(lambda p: spmv_dia(d32, p), b32,
                kmax=4000, rtol=1e-14)
     rel32 = np.linalg.norm(
         a.matvec(np.asarray(res32.x, np.float64)[: a.nrows]) - b
     ) / np.linalg.norm(b)
 
-    ref = cg_refined(a, b, rtol=1e-12, inner_kmax=2000, interpret=True)
+    ref = cg_refined(a, b, rtol=1e-12, inner_kmax=2000)
     rel_ref = np.linalg.norm(a.matvec(ref.x) - b) / np.linalg.norm(b)
     assert rel32 > 1e-9          # the fp32 floor is real
     assert rel_ref < rel32 / 100  # refinement breaks through it
@@ -160,10 +160,9 @@ def test_refinement_jacobi_inner():
     vals = a0.values * w[rows] * w[a0.colind]
     a = CSRHost(rowptr=a0.rowptr, colind=a0.colind, values=vals, ncols=n)
     b = gaussian_bump(n)
-    plain = cg_refined(a, b, rtol=1e-10, inner_kmax=4000, max_outer=8,
-                       interpret=True)
+    plain = cg_refined(a, b, rtol=1e-10, inner_kmax=4000, max_outer=8)
     jac = cg_refined(a, b, rtol=1e-10, inner_kmax=4000, max_outer=8,
-                     jacobi=True, interpret=True)
+                     jacobi=True)
     rel = np.linalg.norm(a.matvec(jac.x) - b) / np.linalg.norm(b)
     assert rel < 1e-9, rel
     assert jac.inner_iterations < plain.inner_iterations, (

@@ -1,22 +1,21 @@
-"""Multi-RHS DIA SpMM (matrix streamed once per block — see
-ops/spmm_dia_pallas.py; the reference applies one vector at a time)."""
+"""Multi-RHS SpMM (matrix read once per block — see ops/spmv_dia.py and
+ops/spmv_well.py; the reference applies one vector at a time)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from spmv_tpu.formats.dia import csr_to_dia
 from spmv_tpu.gen import create_laplace_2d, create_laplace_3d
-from spmv_tpu.ops.spmm_dia_pallas import spmm_dia, spmm_dia_supported
+from spmv_tpu.ops.spmv_dia import spmm_dia
 
 
 @pytest.mark.parametrize("nrhs", [1, 2, 4, 5])
 def test_spmm_matches_per_vector_oracle(nrhs):
     a = create_laplace_2d(64, 64)
     d = csr_to_dia(a, dtype=np.float32, row_align=4096)
-    assert spmm_dia_supported(d, nrhs)
     X = np.random.default_rng(nrhs).standard_normal(
         (a.nrows, nrhs)).astype(np.float32)
-    Y = np.asarray(spmm_dia(d, jnp.asarray(X), interpret=True))
+    Y = np.asarray(spmm_dia(d, jnp.asarray(X)))
     for r in range(nrhs):
         want = a.matvec(X[:, r].astype(np.float64))
         err = np.linalg.norm(Y[: a.nrows, r] - want) / np.linalg.norm(want)
@@ -27,10 +26,9 @@ def test_spmm_3d_stencil_large_halo():
     a = create_laplace_3d(16)
     d = csr_to_dia(a, dtype=np.float32, row_align=4096)
     nrhs = 3
-    assert spmm_dia_supported(d, nrhs)
     X = np.random.default_rng(7).standard_normal(
         (a.nrows, nrhs)).astype(np.float32)
-    Y = np.asarray(spmm_dia(d, jnp.asarray(X), interpret=True))
+    Y = np.asarray(spmm_dia(d, jnp.asarray(X)))
     for r in range(nrhs):
         want = a.matvec(X[:, r].astype(np.float64))
         err = np.linalg.norm(Y[: a.nrows, r] - want) / np.linalg.norm(want)
@@ -38,7 +36,7 @@ def test_spmm_3d_stencil_large_halo():
 
 
 def test_spmm_layout_roundtrip():
-    from spmv_tpu.ops.spmm_dia_pallas import spmm_from_layout, spmm_to_layout
+    from spmv_tpu.ops.spmv_dia import spmm_from_layout, spmm_to_layout
 
     a = create_laplace_2d(32, 32)
     d = csr_to_dia(a, dtype=np.float32, row_align=1024)
@@ -119,14 +117,13 @@ def test_dist_block_cg():
 
 @pytest.mark.parametrize("nrhs", [1, 3])
 def test_spmm_symmetric_storage(nrhs):
-    """Multi-RHS through the symmetric (lower-triangle) carry kernel: the
-    SPD class gets both 40% less matrix traffic and one stream per block."""
+    """Multi-RHS through symmetric (lower-triangle) storage: the SPD class
+    gets both 40% less matrix traffic and one read per block."""
     a = create_laplace_2d(64, 64)
     d = csr_to_dia(a, dtype=np.float32, row_align=4096, symmetric=True)
-    assert spmm_dia_supported(d, nrhs)
     X = np.random.default_rng(nrhs + 30).standard_normal(
         (a.nrows, nrhs)).astype(np.float32)
-    Y = np.asarray(spmm_dia(d, jnp.asarray(X), interpret=True))
+    Y = np.asarray(spmm_dia(d, jnp.asarray(X)))
     for r in range(nrhs):
         want = a.matvec(X[:, r].astype(np.float64))
         err = np.linalg.norm(Y[: a.nrows, r] - want) / np.linalg.norm(want)
@@ -142,7 +139,7 @@ def test_block_cg_symmetric_storage():
     rng = np.random.default_rng(99)
     B = np.stack([gaussian_bump(a.nrows), rng.standard_normal(a.nrows)],
                  axis=1)
-    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-10, interpret=True)
+    X, res = block_cg_dia(d, B, kmax=800, rtol=1e-10)
     assert bool(res.converged)
     for r in range(2):
         rel = np.linalg.norm(a.matvec(np.asarray(X[:, r])) - B[:, r]) \
@@ -153,8 +150,8 @@ def test_block_cg_symmetric_storage():
 @pytest.mark.parametrize("n_dev", [1, 4])
 def test_dist_matmat_mrhs_fast_path_with_ghosts(n_dev):
     """The production multichip configuration: f32 DIA local blocks take the
-    multi-RHS kernel branch (interpret mode here) WITH nonempty ghost
-    rounds — must match the f64 oracle per column."""
+    block apply WITH nonempty ghost rounds — must match the f64 oracle per
+    column."""
     from spmv_tpu.parallel.dist_matrix import build_dist_matrix
 
     a = create_laplace_2d(40, 32)  # banded, ghosts across shards
@@ -226,7 +223,7 @@ def test_matmat_symmetric_batched_reverse():
 
 def test_dist_matmat_well_block_fast_path():
     """f32 WELL local blocks take the block SpMM kernel
-    (ops/spmm_well_pallas: matrix streamed once, metadata decoded once);
+    (ops/spmv_well: matrix and positions read once for the block);
     must match the host oracle per column, with ghosts and (scattered
     matrices) the far remainder exercised."""
     from spmv_tpu.gen import random_csr
@@ -274,7 +271,7 @@ def _banded_random_spd(n=2000, seed=0, diag=3.0):
 @pytest.mark.parametrize("n_dev", [1, 4])
 def test_well_ds_matmat_ds_f64_class(n_dev):
     """DS WELL block SpMM through the distributed path: every column at
-    the double-single floor (ops/spmm_well_pallas DS kernel + per-column
+    the double-single floor (ops/spmv_well DS block gather + per-column
     DS far chains + DS block halos)."""
     from spmv_tpu.ds import ds_from_f64
     from spmv_tpu.parallel.dist_matrix import build_dist_matrix

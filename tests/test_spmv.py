@@ -127,30 +127,30 @@ def test_dia_rectangular_wide():
 
 
 def test_dia_pallas_interpret_matches_oracle():
-    """The Pallas DIA kernel in interpreter mode (CPU) vs the oracle —
-    including lane-crossing offsets (+-1) and row offsets (+-nx)."""
-    from spmv_tpu.ops.spmv_dia_pallas import spmv_dia_pallas
+    """The lane-layout DIA apply (spmv_dia_2d, the solver hot path) vs the
+    oracle — including lane-crossing offsets (+-1) and row offsets
+    (+-nx)."""
+    from spmv_tpu.ops.spmv_dia import dia_to_2d, spmv_dia_2d
 
     a = create_laplace_2d(128, 16)  # offsets (-128, -1, 0, 1, 128)
-    d = csr_to_dia(a, row_align=1024, dtype=np.float32)
+    d = csr_to_dia(a, dtype=np.float32)
     x = np.random.default_rng(77).standard_normal(a.ncols).astype(np.float32)
-    xp = jnp.asarray(np.pad(x, (0, d.nrows_pad - a.ncols)))
-    got = np.asarray(spmv_dia_pallas(d, xp, interpret=True))[: a.nrows]
+    x2 = dia_to_2d(d, jnp.asarray(x))
+    got = np.asarray(jax.jit(spmv_dia_2d)(d, x2)).reshape(-1)[: a.nrows]
     want = a.matvec(x.astype(np.float64))
     assert rel_err(got, want) < 1e-5
 
 
 def test_dia_pallas_interpret_odd_offsets():
     """Offsets with arbitrary lane remainders (nx not a multiple of 128)."""
-    from spmv_tpu.ops.spmv_dia_pallas import spmv_dia_pallas
+    from spmv_tpu.ops.spmv_dia import dia_to_2d, spmv_dia_2d
 
     a = create_laplace_2d(70, 16)  # offsets (-70, -1, 0, 1, 70): r=70, 58
-    d = csr_to_dia(a, row_align=1024, dtype=np.float32)
+    d = csr_to_dia(a, dtype=np.float32)
     x = np.random.default_rng(78).standard_normal(a.ncols).astype(np.float32)
-    xp = jnp.asarray(np.pad(x, (0, d.nrows_pad - a.ncols)))
-    got = np.asarray(spmv_dia_pallas(d, xp, interpret=True))[: a.nrows]
+    got = np.asarray(spmv_dia_2d(d, dia_to_2d(d, jnp.asarray(x))))
     want = a.matvec(x.astype(np.float64))
-    assert rel_err(got, want) < 1e-5
+    assert rel_err(got.reshape(-1)[: a.nrows], want) < 1e-5
 
 
 def test_dia_symmetric_matches_full():
@@ -190,33 +190,16 @@ def test_dia_symmetric_random_banded():
 
 
 def test_dia_sym_pallas_interpret():
-    """Symmetric DIA Pallas kernel (interpreter): lane-crossing and row
-    offsets, multiple tiles, vs the oracle."""
-    from spmv_tpu.ops.spmv_dia_pallas import (
-        _spmv_dia_sym_pallas_2d, dia_to_2d, dia_halo_rows,
-    )
+    """Symmetric DIA storage through the lane-layout apply: lane-crossing
+    and row offsets, vs the oracle."""
+    from spmv_tpu.ops.spmv_dia import dia_to_2d, spmv_dia_2d
 
-    from spmv_tpu.ops.spmv_dia_pallas import _pick_tile_rows
-
-    # sizes chosen so the kernel runs multi-tile (nrows a multiple of the
-    # halo-respecting tile)
     for nx, ny in ((128, 64), (70, 120)):
         a = create_laplace_2d(nx, ny)
         d = csr_to_dia(a, dtype=np.float32, symmetric=True, row_align=4096)
-        hr = dia_halo_rows(d)
         x = np.random.default_rng(91).standard_normal(a.ncols).astype(np.float32)
-        x2 = dia_to_2d(d, jnp.asarray(np.pad(x, (0, d.nrows_pad - a.ncols))))
-        nrows = d.nrows_pad // 128
-        # force multi-tile when a valid smaller tile exists
-        tr = _pick_tile_rows(nrows, len(d.offsets), hr, 4, sym=True)
-        for cand in range(hr, nrows, 16):
-            if nrows % cand == 0:
-                tr = cand
-                break
-        assert tr > 0, (nrows, tr)
-        got = np.asarray(
-            _spmv_dia_sym_pallas_2d(d.data, x2, d.offsets, tr, hr, interpret=True)
-        ).reshape(-1)
+        x2 = dia_to_2d(d, jnp.asarray(x))
+        got = np.asarray(spmv_dia_2d(d, x2)).reshape(-1)
         want = a.matvec(x.astype(np.float64))
         assert rel_err(got[: a.nrows], want) < 1e-5, (nx, ny)
 
@@ -236,119 +219,63 @@ def test_bf16_storage_ell_and_dia():
     assert rel_err(y_d[: a.nrows], want) < 4e-2
 
 
-def test_dia_sym_pallas_tile_count_sweep():
-    """The symmetric carry kernel's delayed-write/DMA-wait choreography has
-    per-n_tiles cases (1 tile, 2, 3, >3); sweep them all explicitly against
-    the oracle (interpreter)."""
-    from spmv_tpu.ops.spmv_dia_pallas import (
-        _spmv_dia_sym_pallas_2d, dia_halo_rows, dia_to_2d,
-    )
+@pytest.mark.parametrize("row_align", [128, 1024, 12288])
+def test_dia_sym_padding_sweep(row_align):
+    """Symmetric storage with padding rows past the matrix: the shifted
+    transpose terms must read zeros there, whatever the padding."""
+    from spmv_tpu.ops.spmv_dia import dia_to_2d, spmv_dia_2d
 
-    a = create_laplace_2d(64, 96)  # 6144 rows, padded to 96 lane-rows
-    d = csr_to_dia(a, dtype=np.float32, symmetric=True, row_align=12288)
-    hr = dia_halo_rows(d)
-    nrows = d.nrows_pad // 128
+    a = create_laplace_2d(64, 96)
+    d = csr_to_dia(a, dtype=np.float32, symmetric=True, row_align=row_align)
     x = np.random.default_rng(17).standard_normal(a.ncols).astype(np.float32)
-    x2 = dia_to_2d(d, jnp.asarray(np.pad(x, (0, d.nrows_pad - a.ncols))))
+    got = np.asarray(spmv_dia_2d(d, dia_to_2d(d, jnp.asarray(x)))).reshape(-1)
     want = a.matvec(x.astype(np.float64))
-    tried = 0
-    for tr in (nrows, nrows // 2, nrows // 3, nrows // 4, nrows // 6):
-        # (96 lane-rows: 1, 2, 3, 4 and 6 tiles; all 8-aligned and >= hr)
-        if nrows % tr or tr % 8 or tr < hr:
-            continue
-        tried += 1
-        got = np.asarray(
-            _spmv_dia_sym_pallas_2d(d.data, x2, d.offsets, tr, hr,
-                                    interpret=True)
-        ).reshape(-1)
-        assert rel_err(got[: a.nrows], want) < 1e-5, (tr, nrows // tr)
-    assert tried >= 4, tried
+    assert rel_err(got[: a.nrows], want) < 1e-5
+    assert np.all(got[a.nrows:] == 0)
 
 
 def test_dia_sym_pallas_bf16_interpret():
-    """bf16 symmetric storage through the carry kernel (staging buffers are
-    bf16, accumulation f32)."""
-    from spmv_tpu.ops.spmv_dia_pallas import (
-        _spmv_dia_sym_pallas_2d, dia_halo_rows, dia_to_2d, _pick_tile_rows,
-    )
+    """bf16 symmetric storage through the lane-layout apply."""
+    from spmv_tpu.ops.spmv_dia import dia_to_2d, spmv_dia_2d
 
     a = create_laplace_2d(48, 48)
     d = csr_to_dia(a, dtype=jnp.bfloat16, symmetric=True, row_align=2048)
-    hr = dia_halo_rows(d)
-    nrows = d.nrows_pad // 128
-    tr = _pick_tile_rows(nrows, len(d.offsets), hr, 2, sym=True)
-    assert tr > 0
     x = np.random.default_rng(19).standard_normal(a.ncols).astype(np.float32)
-    x2 = dia_to_2d(d, jnp.asarray(np.pad(x, (0, d.nrows_pad - a.ncols)))
-                   ).astype(jnp.bfloat16)
-    got = np.asarray(
-        _spmv_dia_sym_pallas_2d(d.data, x2, d.offsets, tr, hr, interpret=True)
-    ).astype(np.float64).reshape(-1)
+    x2 = dia_to_2d(d, jnp.asarray(x)).astype(jnp.bfloat16)
+    got = np.asarray(spmv_dia_2d(d, x2)).astype(np.float64).reshape(-1)
     want = a.matvec(x.astype(np.float64))
     assert rel_err(got[: a.nrows], want) < 3e-2
 
 
-def test_dia_pallas_chunked_bitwise_equal(monkeypatch):
-    """Long grids split into multiple pallas_calls (BENCH_NOTES
-    "Grid-length cliff") must be bitwise-equal to the single-call result,
-    including interior chunk halos read from neighbor rows."""
-    import spmv_tpu.ops.spmv_dia_pallas as dp
-    from spmv_tpu.formats.dia import csr_to_dia
-    from spmv_tpu.gen import create_laplace_2d
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_dia_2d_bitwise_equals_flat(symmetric):
+    """The lane-layout apply and the flat spmv_dia are one computation:
+    bitwise-equal results."""
+    from spmv_tpu.ops.spmv_dia import spmv_dia_2d
 
     a = create_laplace_2d(128, 128, dtype=np.float32)
-    d = csr_to_dia(a, row_align=1024, dtype=np.float32)
+    d = csr_to_dia(a, dtype=np.float32, symmetric=symmetric)
     x = np.random.default_rng(5).standard_normal(d.nrows_pad).astype(
         np.float32)
-    x2 = jnp.asarray(x.reshape(-1, 128))
-    hr = dp.dia_halo_rows(d)
-    fn = dp._spmv_dia_pallas_2d.__wrapped__  # bypass the jit cache
-    y1 = np.asarray(fn(d.data, x2, d.offsets, 16, hr, interpret=True))
-    monkeypatch.setattr(dp, "_CHUNK_TILES", 2)
-    jaxpr = jax.make_jaxpr(
-        lambda dd, xx: fn(dd, xx, d.offsets, 16, hr, interpret=True)
-    )(d.data, x2)
-    assert str(jaxpr).count("pallas_call") >= 4  # chunking actually fired
-    y2 = np.asarray(fn(d.data, x2, d.offsets, 16, hr, interpret=True))
-    np.testing.assert_array_equal(y1, y2)
+    y2 = np.asarray(spmv_dia_2d(d, jnp.asarray(x.reshape(-1, 128))))
+    y1 = np.asarray(spmv_dia(d, jnp.asarray(x)))
+    np.testing.assert_array_equal(y2.reshape(-1), y1)
     want = a.matvec(x[: a.nrows])
-    got = y2.reshape(-1)[: a.nrows]
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6
+    assert rel_err(y1[: a.nrows], want) < 1e-6
 
 
-def test_dia_sym_pallas_chunked_bitwise_equal(monkeypatch):
-    """Chunked symmetric carry kernel: each non-first chunk emits its
-    tile-0 spill for the caller to stitch — bitwise-equal to the
-    single-call result, single and multi-RHS."""
-    import spmv_tpu.ops.spmv_dia_pallas as dp
-    from spmv_tpu.formats.dia import csr_to_dia
-    from spmv_tpu.gen import create_laplace_2d
-    from spmv_tpu.ops.spmm_dia_pallas import spmm_from_layout, spmm_to_layout
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_dia_block_apply_matches_columns(symmetric):
+    """The block (nrhs*128-lane) apply reads the matrix once for all
+    columns; each column equals its own single-vector apply."""
+    from spmv_tpu.ops.spmv_dia import spmm_dia_2d, spmm_from_layout, spmm_to_layout, spmv_dia_2d
 
     a = create_laplace_2d(128, 128, dtype=np.float32)
-    ds = csr_to_dia(a, row_align=1024, dtype=np.float32, symmetric=True)
-    x = np.random.default_rng(6).standard_normal(ds.nrows_pad).astype(
-        np.float32)
-    x2 = jnp.asarray(x.reshape(-1, 128))
-    hr = dp.dia_halo_rows(ds)
-    fn = dp._spmv_dia_sym_pallas_2d.__wrapped__
-    y1 = np.asarray(fn(ds.data, x2, ds.offsets, 16, hr, interpret=True))
-    monkeypatch.setattr(dp, "_CHUNK_TILES", 2)
-    jaxpr = jax.make_jaxpr(
-        lambda dd, xx: fn(dd, xx, ds.offsets, 16, hr, interpret=True)
-    )(ds.data, x2)
-    assert str(jaxpr).count("pallas_call") >= 4
-    y2 = np.asarray(fn(ds.data, x2, ds.offsets, 16, hr, interpret=True))
-    np.testing.assert_array_equal(y1, y2)
-    want = a.matvec(x[: a.nrows])
-    got = y2.reshape(-1)[: a.nrows]
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6
-    # multi-RHS chunked
+    d = csr_to_dia(a, dtype=np.float32, symmetric=symmetric)
     X = np.random.default_rng(7).standard_normal(
-        (ds.nrows_pad, 2)).astype(np.float32)
-    x2m = spmm_to_layout(ds, jnp.asarray(X))
-    y2m = np.asarray(spmm_from_layout(
-        fn(ds.data, x2m, ds.offsets, 16, hr, nrhs=2, interpret=True), 2))
-    wantm = np.stack([a.matvec(X[: a.nrows, r]) for r in range(2)], axis=1)
-    relm = np.linalg.norm(y2m[: a.nrows] - wantm) / np.linalg.norm(wantm)
-    assert relm < 1e-6
+        (d.nrows_pad, 3)).astype(np.float32)
+    Y = np.asarray(spmm_from_layout(
+        spmm_dia_2d(d, spmm_to_layout(d, jnp.asarray(X))), 3))
+    for r in range(3):
+        yr = np.asarray(spmv_dia_2d(d, jnp.asarray(X[:, r].reshape(-1, 128))))
+        np.testing.assert_array_equal(Y[:, r], yr.reshape(-1))

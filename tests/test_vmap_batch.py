@@ -9,7 +9,7 @@ lifts it wholesale: stacked DIA data (same static offsets/shape) + stacked
 right-hand sides -> stacked solutions, with the while_loop batched by XLA
 (each lane masks off after ITS convergence). Parameter studies (one
 operator pattern, many coefficient fields / shifts / RHS) become a single
-device program with MXU-friendly batched kernels.
+device program.
 """
 import dataclasses
 

@@ -1,9 +1,8 @@
-"""WELL (windowed gather-ELL) format + Pallas kernel vs the host oracle.
+"""WELL (windowed gather-ELL) format + its gather apply vs the host oracle.
 
 The general-sparsity device path (reference parity: cuSPARSE cusparseSpMV on
-arbitrary CSR, reference spmv/cuda/csr_kernels.cuda.cu:106-151). Kernel runs
-in interpreter mode on CPU; the same code compiles on TPU (hardware numbers
-in BENCH_NOTES.md).
+arbitrary CSR, reference spmv/cuda/csr_kernels.cuda.cu:106-151). The apply
+is plain JAX, so the CPU runs the same program the GPU compiles.
 """
 import jax
 import jax.numpy as jnp
@@ -13,7 +12,7 @@ import pytest
 from spmv_tpu.formats.csr import CSRHost
 from spmv_tpu.formats.well import csr_to_well, well_occupancy
 from spmv_tpu.gen import create_laplace_2d, random_csr
-from spmv_tpu.ops.spmv_well_pallas import spmv_well_pallas, well_to_2d
+from spmv_tpu.ops.spmv_well import spmv_well
 
 
 def _check(a: CSRHost, tile_groups: int, seed: int = 0, tol: float = 1e-6):
@@ -21,7 +20,7 @@ def _check(a: CSRHost, tile_groups: int, seed: int = 0, tol: float = 1e-6):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(a.ncols).astype(np.float32)
     xp = jnp.asarray(np.pad(x, (0, w.ncols_pad - a.ncols)))
-    y = np.asarray(spmv_well_pallas(w, xp, interpret=True))
+    y = np.asarray(spmv_well(w, xp))
     want = a.matvec(x).astype(np.float32)
     err = np.linalg.norm(y[: a.nrows] - want) / max(np.linalg.norm(want), 1e-30)
     assert err < tol, (tile_groups, err)
@@ -96,7 +95,7 @@ def test_well_empty_matrix():
     a = CSRHost(np.zeros(5, np.int64), np.zeros(0, np.int32), np.zeros(0), 4)
     w = csr_to_well(a, tile_groups=2)
     y = np.asarray(
-        spmv_well_pallas(w, jnp.ones(w.ncols_pad, jnp.float64), interpret=True)
+        spmv_well(w, jnp.ones(w.ncols_pad, jnp.float64))
     )
     assert np.all(y == 0)
 
@@ -110,10 +109,10 @@ def test_well_int16_positions():
     assert w16.pos.dtype == jnp.int16
     assert w32.pos.dtype == jnp.int32
     x = np.random.default_rng(8).standard_normal(a.ncols).astype(np.float32)
-    y16 = np.asarray(spmv_well_pallas(
-        w16, jnp.asarray(np.pad(x, (0, w16.ncols_pad - a.ncols))), interpret=True))
-    y32 = np.asarray(spmv_well_pallas(
-        w32, jnp.asarray(np.pad(x, (0, w32.ncols_pad - a.ncols))), interpret=True))
+    y16 = np.asarray(spmv_well(
+        w16, jnp.asarray(np.pad(x, (0, w16.ncols_pad - a.ncols)))))
+    y32 = np.asarray(spmv_well(
+        w32, jnp.asarray(np.pad(x, (0, w32.ncols_pad - a.ncols)))))
     np.testing.assert_array_equal(y16[: a.nrows], y32[: a.nrows])
 
 
@@ -155,12 +154,12 @@ def _scrambled_spd(n, seed, k=5, dtype=np.float32):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_sym_well_oracle(dtype):
     from spmv_tpu.formats.well import csr_to_well_sym
-    from spmv_tpu.ops.spmv_well_pallas import spmv_well_sym
+    from spmv_tpu.ops.spmv_well import spmv_well_sym
 
     a = _scrambled_spd(500, seed=11, dtype=dtype)
     sw = csr_to_well_sym(a, tile_groups=8, dtype=dtype)
     x = np.random.default_rng(12).standard_normal(500).astype(dtype)
-    y = spmv_well_sym(sw, jnp.asarray(x), interpret=True)
+    y = spmv_well_sym(sw, jnp.asarray(x))
     want = a.matvec(x)
     tol = 1e-5 if dtype == np.float32 else 1e-12
     assert (np.linalg.norm(np.asarray(y)[:500] - want)
@@ -171,13 +170,13 @@ def test_sym_well_with_far_remainder():
     """A tight wseg_cap forces entries into the far COO remainders of both
     triangles; the combined apply must still match the oracle."""
     from spmv_tpu.formats.well import csr_to_well_sym
-    from spmv_tpu.ops.spmv_well_pallas import spmv_well_sym
+    from spmv_tpu.ops.spmv_well import spmv_well_sym
 
     a = _scrambled_spd(1500, seed=13, k=6)
     sw = csr_to_well_sym(a, tile_groups=2, wseg_cap=8)
     assert sw.farl is not None or sw.faru is not None  # split actually hit
     x = np.random.default_rng(14).standard_normal(1500).astype(np.float32)
-    y = spmv_well_sym(sw, jnp.asarray(x), interpret=True)
+    y = spmv_well_sym(sw, jnp.asarray(x))
     want = a.matvec(x)
     assert (np.linalg.norm(np.asarray(y)[:1500] - want)
             / np.linalg.norm(want)) < 1e-5
@@ -186,7 +185,7 @@ def test_sym_well_with_far_remainder():
 def test_sym_well_jit_chain():
     """jit + lane-layout chaining (solver usage pattern)."""
     from spmv_tpu.formats.well import csr_to_well_sym
-    from spmv_tpu.ops.spmv_well_pallas import spmv_well_sym_2d
+    from spmv_tpu.ops.spmv_well import spmv_well_sym_2d
 
     a = _scrambled_spd(400, seed=15)
     sw = csr_to_well_sym(a, tile_groups=8, dtype=np.float32)
@@ -194,88 +193,57 @@ def test_sym_well_jit_chain():
     x = np.zeros(npad, np.float32)
     x[:400] = np.random.default_rng(16).standard_normal(400)
     x2 = jnp.asarray(x.reshape(-1, 128))
-    f = jax.jit(lambda m, v: spmv_well_sym_2d(m, v, interpret=True))
+    f = jax.jit(lambda m, v: spmv_well_sym_2d(m, v))
     y2 = f(sw, f(sw, x2))  # chained applies, shapes closed
     want = a.matvec(a.matvec(x[:400]))
     got = np.asarray(y2).reshape(-1)[:400]
     assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-4
 
 
-# ----- reduced-op gather modes + phase tracing (VERDICT r4 item 6) -----
+# ----- block apply (matrix read once for all right-hand sides) -----
 
 
-def _well_fixture(seed=21, n=2000):
+def _well_fixture(seed=21, n=2000, pair=False):
     a = random_csr(n, n, 6, seed=seed)
-    w = csr_to_well(CSRHost(a.rowptr, a.colind,
-                            a.values.astype(np.float32), a.ncols),
-                    tile_groups=2, dtype=np.float32)
-    x = np.random.default_rng(seed + 1).standard_normal(
-        w.ncols_pad).astype(np.float32)
-    return w, jnp.asarray(x)
+    a = CSRHost(a.rowptr, a.colind, a.values.astype(np.float32), a.ncols)
+    w = csr_to_well(a, tile_groups=2, dtype=np.float32, pair=pair)
+    return a, w
 
 
-def test_gather_terms_3_is_bitwise_default():
-    """terms=3 IS the default path — explicit passing must be bitwise
-    identical (it is the same 3-term bf16 split)."""
-    from spmv_tpu.ops.spmv_well_pallas import spmv_well_pallas_2d, well_to_2d
+@pytest.mark.parametrize("pair", [False, True])
+def test_well_block_apply_matches_columns(pair):
+    """spmm_well_2d gathers each x row once for all columns; every column
+    equals its single-vector apply and the host oracle."""
+    from spmv_tpu.ops.spmv_dia import columns_to_block, block_to_columns
+    from spmv_tpu.ops.spmv_well import spmm_well_2d, spmv_well_2d
 
-    w, x = _well_fixture()
-    x2 = well_to_2d(w, x)
-    # interpret mode exercises the exact_gather branch where gather_terms
-    # is inert; the static argument must still compile and match
-    y_def = np.asarray(spmv_well_pallas_2d(w, x2, interpret=True))
-    y_3 = np.asarray(spmv_well_pallas_2d(w, x2, interpret=True,
-                                         gather_terms=3))
-    np.testing.assert_array_equal(y_def, y_3)
-
-
-@pytest.mark.parametrize("terms,bound", [(2, 2e-4), (1, 2e-2)])
-def test_gather_terms_reduced_error_envelope(terms, bound):
-    """terms=2 gathers x at ~2^-16 relative error, terms=1 at bf16 class
-    (~2^-8) — the documented envelopes (ops/spmv_well_pallas docstring).
-    The interpreter's exact_gather branch bypasses the split, so emulate
-    the split's gather precision on the HOST oracle and require the
-    reduced-mode kernel semantics to stay within the envelope of a
-    truncated-x oracle.
-
-    (The compiled TPU kernel is A/B'd on chip — BENCH_NOTES 'WELL
-    reduced-op A/B'; this test pins the HOST-side contract: the bf16
-    term split reconstructs x to the documented precision.)"""
-    w, x = _well_fixture()
-    xf = np.asarray(x, np.float32)
-    # reproduce the kernel's term split on host
-    terms_list = []
-    r = xf.copy()
-    for _ in range(terms):
-        t = r.astype(jnp.bfloat16).astype(np.float32)
-        terms_list.append(t)
-        r = r - t
-    x_trunc = np.sum(terms_list, axis=0)
-    rel = (np.linalg.norm(x_trunc - xf)
-           / max(np.linalg.norm(xf), 1e-30))
-    assert rel < bound, (terms, rel)
-    if terms == 2:
-        assert rel > 1e-9  # actually reduced, not exact
-    # and the 3-term split is exact f32 reconstruction
-    r3, acc = xf.copy(), np.zeros_like(xf)
-    for _ in range(3):
-        t = r3.astype(jnp.bfloat16).astype(np.float32)
-        acc = acc + t
-        r3 = r3 - t
-    np.testing.assert_array_equal(acc, xf)
+    a, w = _well_fixture(seed=23, pair=pair)
+    X = np.random.default_rng(24).standard_normal(
+        (w.ncols_pad, 3)).astype(np.float32)
+    X[a.ncols:] = 0
+    Y = np.asarray(block_to_columns(spmm_well_2d(w, columns_to_block(jnp.asarray(X)))))
+    for r in range(3):
+        yr = np.asarray(spmv_well_2d(w, jnp.asarray(X[:, r].reshape(-1, 128))))
+        np.testing.assert_allclose(Y[:, r], yr.reshape(-1), rtol=1e-6, atol=1e-6)
+        want = a.matvec(X[: a.ncols, r])
+        assert (np.linalg.norm(Y[: a.nrows, r] - want)
+                / np.linalg.norm(want)) < 1e-5
 
 
-def test_trace_phases_output_identical():
-    """trace_phases wraps kernel phases in named scopes — instrumentation
-    only; results must be identical with it on."""
-    from spmv_tpu.ops.spmv_well_pallas import spmv_well_pallas_2d, well_to_2d
+def test_well_apply_jit_chain():
+    """jit + lane-layout chaining of the vanilla apply (square operators
+    are pad-equalized, so y feeds the next apply unchanged)."""
+    from spmv_tpu.ops.spmv_well import spmv_well_2d
 
-    w, x = _well_fixture(seed=23)
-    x2 = well_to_2d(w, x)
-    y0 = np.asarray(spmv_well_pallas_2d(w, x2, interpret=True))
-    y1 = np.asarray(spmv_well_pallas_2d(w, x2, interpret=True,
-                                        trace_phases=True))
-    np.testing.assert_array_equal(y0, y1)
+    a, w = _well_fixture(seed=25)
+    assert w.nrows_pad == w.ncols_pad
+    x = np.zeros(w.ncols_pad, np.float32)
+    x[: a.ncols] = np.random.default_rng(26).standard_normal(a.ncols)
+    f = jax.jit(spmv_well_2d)
+    y2 = f(w, f(w, jnp.asarray(x.reshape(-1, 128))))
+    want = a.matvec(a.matvec(x[: a.ncols]))
+    got = np.asarray(y2).reshape(-1)[: a.nrows]
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5
 
 
 def test_sym_well_storage_halves_value_memory():

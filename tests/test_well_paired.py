@@ -2,11 +2,9 @@
 
 Merging complementary half-full slots cuts K (storage/traffic) 20-30% on
 boundary-straddling band structure. The two leg segments ride in the pos
-ENDPOINT lanes (lane 0 = leg a, lane 127 = leg b) — kernel reads them as
-free static slices and resolves each element's leg by its own segment.
-Same-run chip A/B measured wall-clock NEUTRAL (the kernel is compute
-bound), so pairing is opt-in (``pair=True``) for HBM-capacity or
-occupancy-gate wins; these tests pin the bitwise contract either way.
+ENDPOINT lanes (lane 0 = leg a, lane 127 = leg b); each element's own pos
+carries its segment, so the gather apply needs no leg select. Pairing is
+opt-in (``pair=True``); these tests pin the bitwise contract either way.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,16 +13,16 @@ import pytest
 from spmv_tpu.formats.csr import CSRHost
 from spmv_tpu.formats.well import csr_to_well, LANES
 from spmv_tpu.gen import create_laplace_2d, random_csr
-from spmv_tpu.ops.spmv_well_pallas import (
+from spmv_tpu.ops.spmv_well import (
     csr_to_well_ds,
+    spmv_well,
     spmv_well_ds,
-    spmv_well_pallas,
 )
 
 
 def _apply(w, a, x):
     xp = jnp.asarray(np.pad(x, (0, w.ncols_pad - a.ncols)))
-    return np.asarray(spmv_well_pallas(w, xp, interpret=True))[: a.nrows]
+    return np.asarray(spmv_well(w, xp))[: a.nrows]
 
 
 def _band_random(n=2000, seed=0):
@@ -108,7 +106,7 @@ def test_paired_ds_f64_class():
     wp = csr_to_well_ds(a64, tile_groups=2, pair=True)
     assert wp.paired
     x = np.random.default_rng(2).standard_normal(2000)
-    y = spmv_well_ds(wp, x, interpret=True)[:2000]
+    y = spmv_well_ds(wp, x)[:2000]
     want = a64.matvec(x)
     err = np.abs(y - want).max() / (np.abs(want).max() + 1)
     assert err < 1e-12, err  # double-single floor, not f32
